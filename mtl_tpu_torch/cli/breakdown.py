@@ -9,9 +9,10 @@ collate, copy to the device, features (STFT kernel + normalize), VGG stack
 (both VGG kernels), encoder, cross-attention K/V, the greedy decode loop,
 and the host string cut. Each stage is ended by a device synchronize and
 timed on the host clock; the first pass warms up and the second is kept.
-On a CUDA device it then runs 20 decode steps under ``torch.profiler`` and
-prints the card's busy share over them (the profiler slows the host, so
-that share is a lower bound).
+On a CUDA device it then runs the VGG stack and 20 decode steps under
+``torch.profiler``: for the VGG stack it prints each kernel's device time,
+for the decode steps the card's busy share (the profiler slows the host,
+so that share is a lower bound).
 """
 
 from __future__ import annotations
@@ -81,8 +82,34 @@ def breakdown_main(argv=None):
               + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
               + f"; {ms['decode_loop'] / steps:.3f} ms/step", flush=True)
         if device.type == "cuda":
+            _profile_vgg(model, feats)
             _profile_decode(model, kvs, feats.shape[0], device, vocab.SOS_ID)
     return ms, steps
+
+
+def _device_kernels(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _profile_vgg(model, feats):
+    """Device time of each kernel of one VGG-stack call, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.conv(feats)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in _device_kernels(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    print(f"vgg_stack under torch.profiler: {wall:.3f} ms wall, "
+          f"{sum(by_name.values()):.3f} ms of device kernels: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in sorted(
+              by_name.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def _profile_decode(model, kvs, b, device, start_token):
@@ -100,8 +127,7 @@ def _profile_decode(model, kvs, b, device, start_token):
             bool((y == EOS_ID).all())  # the loop's host sync
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     busy = sum(e.device_time for e in kernels) / 1e3
     print(f"{PROFILED_STEPS} decode steps under torch.profiler: "
           f"{wall:.3f} ms wall, {busy:.3f} ms of device kernels "

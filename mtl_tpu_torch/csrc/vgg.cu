@@ -1,19 +1,21 @@
-// Fused VGG block: SAME conv3x3 + bias + ReLU -> SAME conv3x3 + bias + ReLU
-// -> 2x2 VALID floor max-pool, one kernel per block.
+// Fused VGG block in f32: SAME conv3x3 + bias + ReLU -> SAME conv3x3 + bias
+// + ReLU -> 2x2 VALID floor max-pool, one kernel per block.
 //
 // Replaces the Pallas TPU kernels mtl_tpu/ops/vgg_pallas.py:vgg_block1_fused
 // (body _b1_kernel, C_in = 1) and vgg_block2_fused (body _b2_kernel,
-// C_in > 1). As there, the conv-1 activation never goes to device memory: it
-// lives in shared memory, in f32.
+// C_in > 1) on the f32 route: the card's f32 parity path. The bf16 route,
+// the model's compute dtype, is csrc/vgg_tc.cu on tensor cores. As on the
+// TPU, the conv-1 activation never goes to device memory: it lives in
+// shared memory, in f32.
 //
-// Layouts: x [B, T, F, C_in] (C_in = 1 may be [B, T, F]); weights flax HWIO
-// [3(f), 3(t), C_in, C] with H = freq and W = time; out [B, T/2, F/2, C].
+// Layouts: x f32 [B, T, F, C_in] (C_in = 1 may be [B, T, F]); weights flax
+// HWIO [3(f), 3(t), C_in, C] with H = freq and W = time; out f32
+// [B, T/2, F/2, C].
 //
 // Work at the flagship serving shapes (B=8, T=800, F=161): block 1 7.7e10
 // flop, block 2 1.13e11 flop against ~86 MB of activations, so both are
 // compute-bound. This design runs f32 FMAs on the CUDA cores (bound 67
-// TFLOP/s); the bf16 tensor-core bound (989 TFLOP/s) needs an implicit GEMM
-// with mma/wgmma, which is later work.
+// TFLOP/s).
 //
 // Design (what does not carry over from the TPU): a block has at most 227 KB
 // of shared memory, so the grid tiles BOTH time and freq. A block owns PT x PF
@@ -27,28 +29,12 @@
 // memory. Weights are too large for shared memory next to the tiles
 // (9*64*128 + 9*128*128 f32 for block 2), so they stream from L2/L1.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // JC consecutive f32 weights at p (16-, 8- or 4-byte aligned by construction)
 template <int JC>
@@ -121,11 +107,11 @@ constexpr size_t smem_bytes() {
 }
 
 // grid: (ceil((T/2)/PT), ceil((F/2)/PF), B); block: THREADS
-template <int CIN, int C, int PT, int PF, int NP, typename TIn, typename TOut>
+template <int CIN, int C, int PT, int PF, int NP>
 __global__ void __launch_bounds__(THREADS) vgg_block_kernel(
-    const TIn* __restrict__ x, const float* __restrict__ w1,
+    const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, TOut* __restrict__ out, int T, int F) {
+    const float* __restrict__ b2, float* __restrict__ out, int T, int F) {
   constexpr int JC = C / 32;
   constexpr int R2 = 2 * PT, C2 = 2 * PF;  // conv-2 region
   constexpr int R1 = R2 + 2, C1 = C2 + 2;  // conv-1 region (1-pixel halo)
@@ -144,13 +130,13 @@ __global__ void __launch_bounds__(THREADS) vgg_block_kernel(
   const int t0 = blockIdx.x * R2, f0 = blockIdx.y * C2;
   const int TP = T / 2, FP = F / 2;
 
-  const TIn* xb = x + (size_t)b * T * F * CIN;
+  const float* xb = x + (size_t)b * T * F * CIN;
   for (int e = tid; e < R0 * C0 * CIN; e += THREADS) {
     const int ci = e % CIN, q = e / CIN;
     const int t = t0 - 2 + q / C0, f = f0 - 2 + q % C0;
     float v = 0.f;
     if (t >= 0 && t < T && f >= 0 && f < F)
-      v = to_f32(xb[((size_t)t * F + f) * CIN + ci]);
+      v = xb[((size_t)t * F + f) * CIN + ci];
     xs[e] = v;
   }
   __syncthreads();
@@ -206,75 +192,55 @@ __global__ void __launch_bounds__(THREADS) vgg_block_kernel(
     for (int k = 0; k < HALF / 2; ++k) {
       const int pf = blockIdx.y * PF + cg * (HALF / 2) + k;
       if (pf >= FP) break;
-      TOut* o = out + (((size_t)b * TP + pt) * FP + pf) * C + JC * lane;
+      float* o = out + (((size_t)b * TP + pt) * FP + pf) * C + JC * lane;
 #pragma unroll
       for (int j = 0; j < JC; ++j) {
         const float m = fmaxf(fmaxf(acc[j][2 * k], acc[j][2 * k + 1]),
                               fmaxf(acc[j][HALF + 2 * k],
                                     acc[j][HALF + 2 * k + 1]));
-        o[j] = from_f32<TOut>(fmaxf(m + bias[j], 0.f));
+        o[j] = fmaxf(m + bias[j], 0.f);
       }
     }
   }
 }
 
-template <int CIN, int C, int PT, int PF, int NP, typename TIn, typename TOut>
-int launch(const void* x, const float* w1, const float* b1, const float* w2,
-           const float* b2, void* out, int B, int T, int F,
+template <int CIN, int C, int PT, int PF, int NP>
+int launch(const float* x, const float* w1, const float* b1, const float* w2,
+           const float* b2, float* out, int B, int T, int F,
            cudaStream_t stream) {
-  auto kernel = vgg_block_kernel<CIN, C, PT, PF, NP, TIn, TOut>;
+  auto kernel = vgg_block_kernel<CIN, C, PT, PF, NP>;
   constexpr size_t smem = smem_bytes<CIN, C, PT, PF>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T / 2 + PT - 1) / PT, (F / 2 + PF - 1) / PF, B);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const TIn*>(x), w1, b1, w2, b2, static_cast<TOut*>(out), T,
-      F);
+  kernel<<<grid, THREADS, smem, stream>>>(x, w1, b1, w2, b2, out, T, F);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Block 1 (C_in = 1): x f32 [B, T, F]; out [B, T/2, F/2, C], f32 or bf16.
-extern "C" int vgg_block1_fwd(const void* x, const float* w1, const float* b1,
-                              const float* w2, const float* b2, void* out,
-                              int B, int T, int F, int c, int out_bf16,
-                              void* stream) {
+// Block 1 (C_in = 1): x f32 [B, T, F]; out f32 [B, T/2, F/2, C].
+extern "C" int vgg_block1_fwd(const float* x, const float* w1, const float* b1,
+                              const float* w2, const float* b2, float* out,
+                              int B, int T, int F, int c, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (c == 64 && out_bf16)
-    return launch<1, 64, 8, 8, 16, float, __nv_bfloat16>(x, w1, b1, w2, b2,
-                                                         out, B, T, F, s);
   if (c == 64)
-    return launch<1, 64, 8, 8, 16, float, float>(x, w1, b1, w2, b2, out, B,
-                                                 T, F, s);
-  if (c == 32 && out_bf16)
-    return launch<1, 32, 8, 8, 16, float, __nv_bfloat16>(x, w1, b1, w2, b2,
-                                                         out, B, T, F, s);
+    return launch<1, 64, 8, 8, 16>(x, w1, b1, w2, b2, out, B, T, F, s);
   if (c == 32)
-    return launch<1, 32, 8, 8, 16, float, float>(x, w1, b1, w2, b2, out, B,
-                                                 T, F, s);
+    return launch<1, 32, 8, 8, 16>(x, w1, b1, w2, b2, out, B, T, F, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Block 2 (C_in > 1): x [B, T, F, C_in] and out [B, T/2, F/2, C], both f32
-// or both bf16.
-extern "C" int vgg_block2_fwd(const void* x, const float* w1, const float* b1,
-                              const float* w2, const float* b2, void* out,
-                              int B, int T, int F, int cin, int c, int bf16,
+// Block 2 (C_in > 1): x f32 [B, T, F, C_in]; out f32 [B, T/2, F/2, C].
+extern "C" int vgg_block2_fwd(const float* x, const float* w1, const float* b1,
+                              const float* w2, const float* b2, float* out,
+                              int B, int T, int F, int cin, int c,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (cin == 64 && c == 128 && bf16)
-    return launch<64, 128, 4, 4, 8, __nv_bfloat16, __nv_bfloat16>(
-        x, w1, b1, w2, b2, out, B, T, F, s);
   if (cin == 64 && c == 128)
-    return launch<64, 128, 4, 4, 8, float, float>(x, w1, b1, w2, b2, out, B,
-                                                  T, F, s);
-  if (cin == 32 && c == 64 && bf16)
-    return launch<32, 64, 4, 4, 8, __nv_bfloat16, __nv_bfloat16>(
-        x, w1, b1, w2, b2, out, B, T, F, s);
+    return launch<64, 128, 4, 4, 8>(x, w1, b1, w2, b2, out, B, T, F, s);
   if (cin == 32 && c == 64)
-    return launch<32, 64, 4, 4, 8, float, float>(x, w1, b1, w2, b2, out, B, T,
-                                                 F, s);
+    return launch<32, 64, 4, 4, 8>(x, w1, b1, w2, b2, out, B, T, F, s);
   return (int)cudaErrorInvalidValue;
 }

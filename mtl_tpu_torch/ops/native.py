@@ -32,20 +32,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> source file under csrc/
-SOURCES = {"stft": "stft.cu", "vgg": "vgg.cu"}
+SOURCES = {"stft": "stft.cu", "vgg": "vgg.cu", "vgg_tc": "vgg_tc.cu"}
 
 # C entry -> argtypes (every entry returns cudaError_t as int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "stft": {"stft_logmag_f32": [_P] * 4 + [_I] * 6 + [_P]},
     "vgg": {
-        "vgg_block1_fwd": [_P] * 6 + [_I] * 5 + [_P],
-        "vgg_block2_fwd": [_P] * 6 + [_I] * 6 + [_P],
+        "vgg_block1_fwd": [_P] * 6 + [_I] * 4 + [_P],
+        "vgg_block2_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    },
+    "vgg_tc": {
+        "vgg_block1_tc": [_P] * 6 + [_I] * 4 + [_P],
+        "vgg_block2_tc": [_P] * 5 + [_I] * 5 + [_P],
     },
 }
 
+# the VGG blocks have two routes each: bf16 tensor cores (vgg_tc.cu) and
+# f32 CUDA cores (vgg.cu, counted as *_f32)
 launch_counts: Dict[str, int] = {"stft_logmag": 0, "vgg_block1": 0,
-                                 "vgg_block2": 0}
+                                 "vgg_block2": 0, "vgg_block1_f32": 0,
+                                 "vgg_block2_f32": 0}
 
 
 def reset_launch_counts() -> None:

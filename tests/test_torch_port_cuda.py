@@ -6,10 +6,15 @@ machine, where JAX may be absent, run them without the repo's conftest:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Shapes cover ragged time and freq tiles (odd T and F, T not a multiple of
-16), both channel configurations (vgg_cnn 64/128, large_cnn 32/64) and both
-output dtypes. Tolerances: f32 outputs differ from the plain version only in
-summation order (rtol/atol 1e-4); bf16 outputs may round to the neighbouring
-bf16 value, one bf16 ulp (2^-7 relative).
+16), both channel configurations (vgg_cnn 64/128, large_cnn 32/64), the
+flagship shapes, and both routes of the VGG blocks, which ``out_dtype``
+chooses. Tolerances: the f32 route differs from the f32 plain version only
+in summation order (rtol/atol 1e-4). The bf16 tensor-core route and the
+bf16-operand plain version sum in f32 in other orders, so a conv-1 value or
+an output near a bf16 rounding boundary may round to its neighbour: one
+bf16 ulp of the output, |d| <= 2^-7 |plain| + 2^-10 (the absolute term for
+outputs near zero, where a neighbouring conv-1 value moves the sum by about
+1e-4).
 """
 
 import numpy as np
@@ -37,7 +42,32 @@ def dev():
 def _close_bf16(k, p):
     k, p = k.float(), p.float()
     err = (k - p).abs()
-    assert bool((err <= 2.0 ** -7 * p.abs() + 1e-6).all()), float(err.max())
+    assert bool((err <= 2.0 ** -7 * p.abs() + 2.0 ** -10).all()), \
+        float(err.max())
+
+
+def _vgg_inputs(dev, shape, cin, c, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    if cin > 1:
+        x = x.to(dtype)
+    ws = [torch.from_numpy((rng.randn(*s) * sc).astype(np.float32)).to(dev)
+          for s, sc in (((3, 3, cin, c), 0.3 / cin ** 0.5), ((c,), 0.1),
+                        ((3, 3, c, c), 0.3 / c ** 0.5), ((c,), 0.1))]
+    return x, ws
+
+
+def _run_route(fn, x, ws, dtype, block):
+    """One wrapper call; asserts that exactly its dtype's route launched."""
+    name = f"vgg_block{block}"
+    mine, other = ((name, f"{name}_f32") if dtype == torch.bfloat16
+                   else (f"{name}_f32", name))
+    before = dict(native.launch_counts)
+    out = fn(x, *ws, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert native.launch_counts[mine] == before[mine] + 1
+    assert native.launch_counts[other] == before[other]
+    return out
 
 
 @pytest.mark.parametrize("b,t,n_fft,hop", [(2, 37, 320, 160),
@@ -63,20 +93,12 @@ def test_stft_kernel_matches_plain(dev, b, t, n_fft, hop):
 @pytest.mark.parametrize("cin,c", [(1, 64), (1, 32), (64, 128), (32, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vgg_kernel_matches_plain(dev, t, f, cin, c, dtype):
-    rng = np.random.RandomState(t + c)
+    """f32: the f32 CUDA-core route against the f32 plain version; bf16:
+    the tensor-core route against the bf16-operand plain version."""
     shape = (2, t, f) if cin == 1 else (2, t, f, cin)
-    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
-    if cin > 1:
-        x = x.to(dtype)
-    ws = [torch.from_numpy((rng.randn(*s) * sc).astype(np.float32)).to(dev)
-          for s, sc in (((3, 3, cin, c), 0.3 / cin ** 0.5), ((c,), 0.1),
-                        ((3, 3, c, c), 0.3 / c ** 0.5), ((c,), 0.1))]
-    fn, counter = ((vgg_block1, "vgg_block1") if cin == 1
-                   else (vgg_block2, "vgg_block2"))
-    before = native.launch_counts[counter]
-    out = fn(x, *ws, out_dtype=dtype)
-    torch.cuda.synchronize()
-    assert native.launch_counts[counter] == before + 1
+    x, ws = _vgg_inputs(dev, shape, cin, c, dtype, t + c)
+    fn, block = (vgg_block1, 1) if cin == 1 else (vgg_block2, 2)
+    out = _run_route(fn, x, ws, dtype, block)
     ref = vgg_block_plain(x, *ws, out_dtype=dtype)
     assert out.shape == ref.shape == (2, t // 2, f // 2, c)
     assert out.dtype == dtype
@@ -84,3 +106,52 @@ def test_vgg_kernel_matches_plain(dev, t, f, cin, c, dtype):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     else:
         _close_bf16(out, ref)
+
+
+@pytest.mark.parametrize("block", [1, 2])
+def test_vgg_tc_flagship_tiles(dev, block):
+    """The flagship shapes (batch 8, 800 frames x 161 bins; block 2 at
+    400 x 80 x 64): many tiles in both axes, block 1's odd F, and the
+    persistent block-1 grid walking several tiles per CTA."""
+    if block == 1:
+        x, ws = _vgg_inputs(dev, (8, 800, 161), 1, 64, torch.bfloat16, 1)
+        fn = vgg_block1
+    else:
+        x, ws = _vgg_inputs(dev, (8, 400, 80, 64), 64, 128, torch.bfloat16,
+                            2)
+        x = x.relu()  # like block 1's output
+        fn = vgg_block2
+    out = _run_route(fn, x, ws, torch.bfloat16, block)
+    ref = vgg_block_plain(x, *ws, out_dtype=torch.bfloat16)
+    assert out.shape == ref.shape
+    _close_bf16(out, ref)
+
+
+def test_vgg_tc_refuses_unbuilt_channels(dev):
+    """C = 16 has no kernel: a bf16 CUDA call raises ValueError and neither
+    route launches."""
+    x, ws = _vgg_inputs(dev, (1, 16, 13), 1, 16, torch.bfloat16, 3)
+    before = dict(native.launch_counts)
+    with pytest.raises(ValueError):
+        vgg_block1(x, *ws, out_dtype=torch.bfloat16)
+    assert native.launch_counts == before
+
+
+def test_vgg_tc_library_refused_raises(dev, monkeypatch):
+    """When the tensor-core library cannot be had, a bf16 CUDA call raises;
+    it does not run the f32 route or the plain version instead."""
+    real = native.library
+
+    def refuse(name):
+        if name == "vgg_tc":
+            raise RuntimeError("vgg_tc refused")
+        return real(name)
+
+    monkeypatch.setattr(native, "library", refuse)
+    for cin, c, fn in ((1, 64, vgg_block1), (64, 128, vgg_block2)):
+        shape = (1, 16, 13) if cin == 1 else (1, 16, 13, cin)
+        x, ws = _vgg_inputs(dev, shape, cin, c, torch.bfloat16, 4)
+        before = dict(native.launch_counts)
+        with pytest.raises(RuntimeError, match="vgg_tc refused"):
+            fn(x, *ws, out_dtype=torch.bfloat16)
+        assert native.launch_counts == before
