@@ -11,7 +11,9 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
 3. at the flagship serving shapes (batch 8, bucket 800 frames, 16 kHz /
    20 ms / 10 ms, vgg_cnn) holds each kernel route against its plain
    PyTorch version on the card, with TF32 off, and times kernel, plain
-   version and a library yardstick with CUDA events: the STFT, and both
+   version and a library yardstick with CUDA events: both routes of the
+   STFT (the FFT, served, and the direct DFT, timed in turns with it; the
+   yardstick is the cuFFT chain torch.stft -> abs -> log1p), and both
    routes of both VGG blocks (bf16 tensor cores against the bf16-operand
    plain version, f32 CUDA cores against the f32 one);
 4. writes a synthetic corpus of 4-8 s utterances (bucket 800 frames);
@@ -20,8 +22,9 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    d_emb 512, r 100, bf16);
 6. serves it with the port's ``test_main`` (greedy decode + CER/WER) on
    ``cuda`` and prints utterances/s and the TOTAL line; the launch counters
-   are zeroed just before and read just after: the STFT and both bf16
-   tensor-core VGG kernels must have launched;
+   are zeroed just before and read just after: the FFT STFT (once a batch,
+   the direct one never) and both bf16 tensor-core VGG kernels must have
+   launched;
 7. checks the served path against the plain versions on a small input: the
    same weights at f32 on the card (kernels) and on the CPU (plain
    versions) must give the same features, encoder output and decode-step
@@ -114,9 +117,9 @@ def check_kernels(torch, dev):
     shapes; returns the kernels' records (launches filled in later)."""
     import torch.nn.functional as F
 
-    from mtl_tpu_torch.ops.frontend import dft_matrices
-    from mtl_tpu_torch.ops.stft import (frames_from_prepadded, stft_logmag,
-                                        stft_logmag_plain)
+    from mtl_tpu_torch.ops.stft import (device_dft_matrices, device_fft_tables,
+                                        stft_logmag, stft_logmag_direct,
+                                        stft_logmag_plain, stft_route)
     from mtl_tpu_torch.ops.vgg import (hwio_to_oihw, pack_block1_tc,
                                        pack_block2_tc, vgg_block1, vgg_block2,
                                        vgg_block_plain)
@@ -134,40 +137,81 @@ def check_kernels(torch, dev):
               f"{rec['_bound_note']})", flush=True)
         records.append(rec)
 
-    # -- kernel 1: STFT log-magnitude, f32 --------------------------------
+    # -- kernel 1: STFT log-magnitude, f32, both routes --------------------
+    # n_fft 320 takes the FFT route on the served path; the direct route
+    # (the GEMM form, kept for n_fft with a prime factor above 5) runs
+    # through its launcher at the same shapes, as the old design's yardstick
     s = (T - 1) * HOP + N_FFT
     audio = torch.from_numpy(
         rng.uniform(-0.5, 0.5, (B, s)).astype(np.float32)).to(dev)
-    cos_b, nsin_b = (torch.from_numpy(m).to(dev)
-                     for m in dft_matrices(N_FFT, "hamming"))
-    out = stft_logmag(audio, cos_b, nsin_b, T, HOP)
+    cos_b, nsin_b = device_dft_matrices(N_FFT, "hamming", dev)
+    win, tw = device_fft_tables(N_FFT, "hamming", dev)
+    check(stft_route(N_FFT) == "fft", "n_fft 320 must take the FFT route")
     ref = stft_logmag_plain(audio, cos_b, nsin_b, T, HOP)
-    torch.cuda.synchronize()
-    check(out.shape == ref.shape == (B, T, NFREQ), "stft_logmag shape")
-    check(bool(torch.isfinite(out).all()), "stft_logmag not finite")
-    err = float((out - ref).abs().max())
-    rel = float(((out - ref).abs() / ref.abs().clamp_min(1e-6)).max())
-    # f32 on both sides; only the order of the 320-term sums differs
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-    frames = frames_from_prepadded(audio, N_FFT, HOP, T).reshape(B * T, N_FFT)
-    bases = torch.cat([cos_b, nsin_b], dim=1)
-    flops = 4 * B * T * N_FFT * NFREQ
-    bound, by = _bound_ms(_nbytes(audio, cos_b, nsin_b, out), flops,
-                          PEAK_F32)
+    routes = {  # name -> (call, kernel name for the profiler)
+        "fft": (lambda: stft_logmag(audio, N_FFT, HOP, T, "hamming"),
+                "stft_fft_kernel"),
+        "direct": (lambda: stft_logmag_direct(audio, cos_b, nsin_b, T,
+                                              HOP), "stft_logmag_kernel"),
+    }
+    errs = {}
+    for route, (fn, _) in routes.items():
+        out = fn()
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape == (B, T, NFREQ), f"stft {route} shape")
+        check(bool(torch.isfinite(out).all()), f"stft {route} not finite")
+        d = (out - ref).abs()
+        errs[route] = (float(d.max()),
+                       float((d / ref.abs().clamp_min(1e-6)).max()))
+        # f32 on both sides; only the order of the sums differs
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+    def cufft_chain():
+        """The same function and layout in one library chain (cuFFT)."""
+        return torch.stft(audio, N_FFT, HOP, window=win, center=False,
+                          return_complex=True).abs().log1p().transpose(
+                              1, 2).contiguous()
+
+    lib_err = float((cufft_chain() - ref).abs().max())
+    torch.testing.assert_close(cufft_chain(), ref, rtol=1e-4, atol=1e-4)
+    # turns: direct, FFT, FFT, direct -- wrapper calls by CUDA events, the
+    # kernel alone by torch.profiler
+    turns = []
+    for route in ("direct", "fft", "fft", "direct"):
+        fn, kernel = routes[route]
+        turns.append((route, _time_ms(fn), _device_ms(fn, kernel)))
+    by = {r: [(ms, alone) for rt, ms, alone in turns if rt == r]
+          for r in routes}
+    plain_ms = _time_ms(
+        lambda: stft_logmag_plain(audio, cos_b, nsin_b, T, HOP))
+    library_ms = _time_ms(cufft_chain)
+    m = N_FFT // 2
+    # the packed M-point complex FFT (5 M log2 M) and the split and
+    # magnitude (~10 a bin), per frame; the GEMM form for the note
+    fft_flops = B * T * (5 * m * math.log2(m) + 10 * NFREQ)
+    gemm_flops = 4 * B * T * N_FFT * NFREQ
+    nbytes = _nbytes(audio, win, tw, ref)
+    bound, bound_by = _bound_ms(nbytes, fft_flops, PEAK_F32)
+    fft_ms = sum(ms for ms, _ in by["fft"]) / 2
+    fft_alone = [alone for _, alone in by["fft"]]
+    print("kernel stft_logmag turns (route, ms, kernel alone ms): "
+          + "; ".join(f"{r} {ms:.4f} {a:.4f}" for r, ms, a in turns)
+          + f"; fft alone {bound / min(fft_alone):.3f} of its bound; direct "
+          f"route (csrc/stft.cu) max_abs_err {errs['direct'][0]:.3e} "
+          f"direct_ms {sum(ms for ms, _ in by['direct']) / 2:.4f}; cuFFT "
+          f"chain max_abs_err {lib_err:.3e}", flush=True)
     report({
         "name": "stft_logmag", "route": "cuda",
-        "source": "mtl_tpu_torch/csrc/stft.cu",
+        "source": "mtl_tpu_torch/csrc/stft_fft.cu",
         "replaces": "mtl_tpu/ops/stft_pallas.py:59",
-        "max_abs_err": err,
-        "ms": _time_ms(lambda: stft_logmag(audio, cos_b, nsin_b, T, HOP)),
-        "plain_ms": _time_ms(
-            lambda: stft_logmag_plain(audio, cos_b, nsin_b, T, HOP)),
-        # one f32 (TF32 off) matmul of the materialised frames by both bases
-        "library_ms": _time_ms(lambda: torch.matmul(frames, bases)),
-        "bound_ms": bound, "bound_by": by,
-        "_bound_note": f"{flops:.3e} flop at f32 67 TFLOP/s",
+        "max_abs_err": errs["fft"][0], "ms": fft_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+        "_bound_note": f"{nbytes} B at 3.35 TB/s; the FFT's {fft_flops:.3e} "
+                       f"flop at f32 67 TFLOP/s; the GEMM form's "
+                       f"{gemm_flops:.3e} flop would take "
+                       f"{gemm_flops / PEAK_F32 * 1e3:.4f} ms",
         "_path": "serve",
-    }, err, rel, "rtol=atol=1e-4 (f32, summation order)")
+    }, *errs["fft"], "rtol=atol=1e-4 (f32, summation order)")
 
     # -- kernels 2 and 3: fused VGG blocks, both routes --------------------
     def weights(c_in, c):
@@ -390,9 +434,12 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     reports = native.build()
-    print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
+    print(f"build_s {time.perf_counter() - t0:.2f} ("
+          + ", ".join(f"{native.SOURCES[n]} {sec:.2f}"
+                      for n, (sec, _) in reports.items())
+          + "; one nvcc each, all at once)", flush=True)
     with open(os.path.join(WORK, "ptxas.txt"), "w") as f:
-        for name, log in reports.items():
+        for name, (_, log) in reports.items():
             f.write(f"== {name}\n{log}\n")
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -420,6 +467,11 @@ def main():
           f"factor {wall / audio_s:.4f}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     print(f"launches in the served run: {counts}", flush=True)
+    batches = math.ceil(UTTERANCES / 8)
+    check(counts["stft_logmag"] == batches
+          and counts["stft_logmag_direct"] == 0,
+          f"the served run must launch the FFT STFT once a batch "
+          f"({batches}) and the direct one never: {counts}")
 
     # 7. the served path against the plain versions, at f32
     parity = check_against_plain(torch, dev, ckpt, corpus_dir)

@@ -9,10 +9,10 @@ collate, copy to the device, features (STFT kernel + normalize), VGG stack
 (both VGG kernels), encoder, cross-attention K/V, the greedy decode loop,
 and the host string cut. Each stage is ended by a device synchronize and
 timed on the host clock; the first pass warms up and the second is kept.
-On a CUDA device it then runs the VGG stack and 20 decode steps under
-``torch.profiler``: for the VGG stack it prints each kernel's device time,
-for the decode steps the card's busy share (the profiler slows the host,
-so that share is a lower bound).
+On a CUDA device it then runs the features, the VGG stack and 20 decode
+steps under ``torch.profiler``: for the first two it prints each kernel's
+device time, for the decode steps the card's busy share (the profiler
+slows the host, so that share is a lower bound).
 """
 
 from __future__ import annotations
@@ -82,7 +82,9 @@ def breakdown_main(argv=None):
               + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
               + f"; {ms['decode_loop'] / steps:.3f} ms/step", flush=True)
         if device.type == "cuda":
-            _profile_vgg(model, feats)
+            _profile_stage("features",
+                           lambda: prepare_features(inp, saved_cfg))
+            _profile_stage("vgg_stack", lambda: model.conv(feats))
             _profile_decode(model, kvs, feats.shape[0], device, vocab.SOS_ID)
     return ms, steps
 
@@ -92,21 +94,31 @@ def _device_kernels(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _profile_vgg(model, feats):
-    """Device time of each kernel of one VGG-stack call, by name."""
+def _short_name(kernel):
+    """A kernel's name without return type, namespace noise, template
+    arguments or parameters; kernels that share one are summed."""
+    name = kernel.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for cut in ("<", "("):
+        name = name.split(cut)[0]
+    return name
+
+
+def _profile_stage(name, fn):
+    """Device time of each kernel of one call of a stage, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.conv(feats)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in _device_kernels(prof):
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    print(f"vgg_stack under torch.profiler: {wall:.3f} ms wall, "
+        short = _short_name(e.name)
+        by_name[short] = by_name.get(short, 0.0) + e.device_time / 1e3
+    print(f"{name} under torch.profiler: {wall:.3f} ms wall, "
           f"{sum(by_name.values()):.3f} ms of device kernels: "
           + "; ".join(f"{k} {v:.4f}" for k, v in sorted(
               by_name.items(), key=lambda kv: -kv[1])), flush=True)

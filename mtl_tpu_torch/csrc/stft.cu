@@ -13,6 +13,11 @@
 // on the CUDA cores (log1p amplifies the error of small bins; TF32 would keep
 // about three digits).
 //
+// Route: csrc/stft_fft.cu, a shared-memory FFT bound by bytes, takes every
+// n_fft whose half has no prime factor above 5; this kernel takes the rest
+// (441, 448, ...), chosen by ops/stft.py:stft_route, and is counted as
+// stft_logmag_direct.
+//
 // Design: a block owns TM frame rows x TN bins; per TK-sample step it stages
 // the frame chunk and both basis chunks in shared memory, and each thread
 // keeps a 4x4 register tile of re and im (32 FMAs per 12 shared loads).

@@ -4,8 +4,9 @@ Reference pipeline (utils/data_loader.py:65-96): librosa STFT with
 n_fft = sr*window_size, hop = sr*window_stride, symmetric hamming window,
 center=True reflect padding; log1p(|D|); per-utterance mean/std normalize
 with torch's unbiased std. Here the whole padded batch is transformed at
-once: the windowed DFT runs as ``ops/stft.py:stft_logmag`` (a CUDA kernel on
-the card), then the masked per-utterance normalize.
+once: the windowed STFT runs as ``ops/stft.py:stft_logmag`` (a CUDA kernel on
+the card, an FFT for the usual n_fft), then the masked per-utterance
+normalize.
 
 The waveforms normally arrive prepadded (data/dataset.py:collate_audio
 reflect-pads each utterance by n_fft//2 on both sides), which is what exact
@@ -14,64 +15,14 @@ librosa parity on zero-padded batches needs.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the windows and DFT bases live beside the kernel that uses them
+from .stft import device_dft_matrices, dft_matrices  # noqa: F401
 from .stft import frames_from_prepadded, stft_logmag
-
-
-def _cosine_window(n: int, coefs) -> np.ndarray:
-    if n == 1:
-        return np.ones(1, dtype=np.float32)
-    k = np.arange(n, dtype=np.float64)
-    w = sum(a * np.cos(2.0 * np.pi * i * k / (n - 1))
-            for i, a in enumerate(coefs))
-    return w.astype(np.float32)
-
-
-def bartlett_window(n: int) -> np.ndarray:
-    if n == 1:
-        return np.ones(1, dtype=np.float32)
-    k = np.arange(n, dtype=np.float64)
-    return (1.0 - np.abs(2.0 * k / (n - 1) - 1.0)).astype(np.float32)
-
-
-# symmetric windows, scipy.signal.<name>(n, sym=True) parity
-WINDOWS = {
-    "hamming": lambda n: _cosine_window(n, (0.54, -0.46)),
-    "hann": lambda n: _cosine_window(n, (0.5, -0.5)),
-    "blackman": lambda n: _cosine_window(n, (0.42, -0.5, 0.08)),
-    "bartlett": bartlett_window,
-}
-
-
-@functools.lru_cache(maxsize=8)
-def dft_matrices(n_fft: int, window: str = "hamming"
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Windowed real-DFT basis: (cos [n_fft, F], -sin [n_fft, F]) with the
-    window folded in, so spectrogram = frames @ basis."""
-    f = n_fft // 2 + 1
-    n = np.arange(n_fft, dtype=np.float64)[:, None]
-    k = np.arange(f, dtype=np.float64)[None, :]
-    ang = 2.0 * np.pi * n * k / n_fft
-    w = WINDOWS[window](n_fft).astype(np.float64)[:, None]
-    return (
-        (np.cos(ang) * w).astype(np.float32),
-        (-np.sin(ang) * w).astype(np.float32),
-    )
-
-
-@functools.lru_cache(maxsize=8)
-def device_dft_matrices(n_fft: int, window: str, device: torch.device
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``dft_matrices`` copied to ``device`` once, so a served batch only
-    launches the STFT. Read-only: callers must not write to them."""
-    return tuple(torch.from_numpy(m).to(device)
-                 for m in dft_matrices(n_fft, window))
 
 
 def num_frames(num_samples: torch.Tensor, n_fft: int,
@@ -116,8 +67,7 @@ def log_spectrogram(
     if not prepadded:
         audio = _reflect_pad(audio, n_fft)
     t = 1 + s // hop
-    cos_b, nsin_b = device_dft_matrices(n_fft, window, audio.device)
-    spect = stft_logmag(audio.float().contiguous(), cos_b, nsin_b, t, hop)
+    spect = stft_logmag(audio.float().contiguous(), n_fft, hop, t, window)
 
     frame_lengths = torch.clamp(num_frames(audio_lengths, n_fft, hop), max=t)
     if normalize:

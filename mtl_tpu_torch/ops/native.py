@@ -20,7 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Optional
+import time
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -32,12 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> source file under csrc/
-SOURCES = {"stft": "stft.cu", "vgg": "vgg.cu", "vgg_tc": "vgg_tc.cu"}
+SOURCES = {"stft": "stft.cu", "stft_fft": "stft_fft.cu", "vgg": "vgg.cu",
+           "vgg_tc": "vgg_tc.cu"}
 
 # C entry -> argtypes (every entry returns cudaError_t as int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "stft": {"stft_logmag_f32": [_P] * 4 + [_I] * 6 + [_P]},
+    "stft_fft": {"stft_fft_f32": [_P] * 4 + [_I] * 7 + [_P]},
     "vgg": {
         "vgg_block1_fwd": [_P] * 6 + [_I] * 4 + [_P],
         "vgg_block2_fwd": [_P] * 6 + [_I] * 5 + [_P],
@@ -48,11 +51,13 @@ ENTRIES = {
     },
 }
 
-# the VGG blocks have two routes each: bf16 tensor cores (vgg_tc.cu) and
-# f32 CUDA cores (vgg.cu, counted as *_f32)
-launch_counts: Dict[str, int] = {"stft_logmag": 0, "vgg_block1": 0,
-                                 "vgg_block2": 0, "vgg_block1_f32": 0,
-                                 "vgg_block2_f32": 0}
+# the STFT has two routes chosen by n_fft: the FFT (stft_fft.cu) and the
+# direct DFT (stft.cu, counted as stft_logmag_direct); the VGG blocks two
+# chosen by dtype: bf16 tensor cores (vgg_tc.cu) and f32 CUDA cores
+# (vgg.cu, counted as *_f32)
+launch_counts: Dict[str, int] = {"stft_logmag": 0, "stft_logmag_direct": 0,
+                                 "vgg_block1": 0, "vgg_block2": 0,
+                                 "vgg_block1_f32": 0, "vgg_block2_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,28 +83,41 @@ def so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+def build(names: Optional[Iterable[str]] = None
+          ) -> Dict[str, Tuple[float, str]]:
     """Compile the named sources (default: all) that are not built yet, all
-    ``nvcc`` processes at once. Returns {name: ptxas report}; raises with the
+    ``nvcc`` processes at once. Returns {name: (seconds from the start of
+    the build to that compile's end, ptxas report)}; raises with the
     compiler's output if any build fails."""
     names = list(SOURCES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    start, procs = time.perf_counter(), {}
     for name in names:
         out = so_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        procs[name] = (out, tmp, subprocess.Popen(
+        log = open(f"{tmp}.log", "w+")  # a file: a pipe could fill and block
+        procs[name] = (out, tmp, log, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp,
              os.path.join(CSRC_DIR, SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=log, stderr=subprocess.STDOUT))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for name, (_, _, _, proc) in procs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - start
+        time.sleep(0.02)
     reports, failed = {}, []
-    for name, (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
+    for name, (out, tmp, log, proc) in procs.items():
+        log.seek(0)
+        reports[name] = (seconds[name], log.read())
+        log.close()
+        os.remove(f"{tmp}.log")
         if proc.returncode != 0:
-            failed.append(f"nvcc {SOURCES[name]} failed:\n{log}")
+            failed.append(f"nvcc {SOURCES[name]} failed:\n{reports[name][1]}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     if failed:

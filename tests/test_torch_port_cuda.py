@@ -7,14 +7,17 @@ machine, where JAX may be absent, run them without the repo's conftest:
 
 Shapes cover ragged time and freq tiles (odd T and F, T not a multiple of
 16), both channel configurations (vgg_cnn 64/128, large_cnn 32/64), the
-flagship shapes, and both routes of the VGG blocks, which ``out_dtype``
-chooses. Tolerances: the f32 route differs from the f32 plain version only
-in summation order (rtol/atol 1e-4). The bf16 tensor-core route and the
-bf16-operand plain version sum in f32 in other orders, so a conv-1 value or
-an output near a bf16 rounding boundary may round to its neighbour: one
-bf16 ulp of the output, |d| <= 2^-7 |plain| + 2^-10 (the absolute term for
-outputs near zero, where a neighbouring conv-1 value moves the sum by about
-1e-4).
+flagship shapes, both routes of the STFT, which n_fft chooses (every FFT
+radix, an odd FFT half, T = 1, a waveform short of its last frame), and
+both routes of the VGG blocks, which ``out_dtype`` chooses. Tolerances:
+both STFT routes are f32 against the f32 plain version; the FFT and the
+GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
+the f32 plain version only in summation order (rtol/atol 1e-4). The bf16
+tensor-core route and the bf16-operand plain version sum in f32 in other
+orders, so a conv-1 value or an output near a bf16 rounding boundary may
+round to its neighbour: one bf16 ulp of the output, |d| <= 2^-7 |plain| +
+2^-10 (the absolute term for outputs near zero, where a neighbouring conv-1
+value moves the sum by about 1e-4).
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ import torch
 
 from mtl_tpu_torch.ops import native
 from mtl_tpu_torch.ops.frontend import dft_matrices
-from mtl_tpu_torch.ops.stft import stft_logmag, stft_logmag_plain
+from mtl_tpu_torch.ops.stft import (stft_logmag, stft_logmag_direct,
+                                    stft_logmag_plain, stft_route)
 from mtl_tpu_torch.ops.vgg import vgg_block1, vgg_block2, vgg_block_plain
 
 pytestmark = pytest.mark.cuda
@@ -70,23 +74,74 @@ def _run_route(fn, x, ws, dtype, block):
     return out
 
 
-@pytest.mark.parametrize("b,t,n_fft,hop", [(2, 37, 320, 160),
-                                           (3, 200, 320, 160),
-                                           (1, 50, 400, 160)])
-def test_stft_kernel_matches_plain(dev, b, t, n_fft, hop):
-    rng = np.random.RandomState(0)
+# (b, t, n_fft, hop, samples short of (t - 1) * hop + n_fft); the FFT
+# route's CTAs take 4 frames, so t = 37, 21, 33 and 50 leave a ragged last
+# CTA
+STFT_SHAPES = [(2, 37, 320, 160, 0), (3, 200, 320, 160, 0),
+               (1, 50, 400, 160, 0), (8, 800, 320, 160, 0),
+               (2, 33, 160, 80, 0), (3, 1, 320, 160, 0),
+               (2, 21, 320, 160, 250), (1, 9, 480, 160, 0),
+               (1, 7, 512, 160, 0), (1, 12, 250, 100, 0),
+               (1, 40, 448, 160, 0)]
+
+
+def _stft_inputs(dev, b, t, n_fft, hop, short):
+    rng = np.random.RandomState(t + n_fft)
+    s = (t - 1) * hop + n_fft - short
     audio = torch.from_numpy(
-        rng.uniform(-0.5, 0.5, (b, (t - 1) * hop + n_fft)).astype(np.float32)
-    ).to(dev)
+        rng.uniform(-0.5, 0.5, (b, s)).astype(np.float32)).to(dev)
     cos_b, nsin_b = (torch.from_numpy(m).to(dev)
                      for m in dft_matrices(n_fft, "hamming"))
-    before = native.launch_counts["stft_logmag"]
-    out = stft_logmag(audio, cos_b, nsin_b, t, hop)
+    return audio, cos_b, nsin_b
+
+
+@pytest.mark.parametrize("b,t,n_fft,hop,short", STFT_SHAPES)
+def test_stft_kernel_matches_plain(dev, b, t, n_fft, hop, short):
+    """The wrapper launches the route its n_fft picks (the FFT for 448's
+    factor 7 is refused: the direct kernel), and only that one."""
+    audio, cos_b, nsin_b = _stft_inputs(dev, b, t, n_fft, hop, short)
+    mine, other = (("stft_logmag", "stft_logmag_direct")
+                   if stft_route(n_fft) == "fft"
+                   else ("stft_logmag_direct", "stft_logmag"))
+    assert (mine == "stft_logmag") == (n_fft != 448)
+    before = dict(native.launch_counts)
+    out = stft_logmag(audio, n_fft, hop, t, "hamming")
     torch.cuda.synchronize()
-    assert native.launch_counts["stft_logmag"] == before + 1
+    assert native.launch_counts[mine] == before[mine] + 1
+    assert native.launch_counts[other] == before[other]
     ref = stft_logmag_plain(audio, cos_b, nsin_b, t, hop)
     assert out.shape == ref.shape == (b, t, n_fft // 2 + 1)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,n_fft,hop,short", STFT_SHAPES)
+def test_stft_direct_route_matches_plain(dev, b, t, n_fft, hop, short):
+    """The direct kernel takes every n_fft through its launcher."""
+    audio, cos_b, nsin_b = _stft_inputs(dev, b, t, n_fft, hop, short)
+    before = native.launch_counts["stft_logmag_direct"]
+    out = stft_logmag_direct(audio, cos_b, nsin_b, t, hop)
+    torch.cuda.synchronize()
+    assert native.launch_counts["stft_logmag_direct"] == before + 1
+    ref = stft_logmag_plain(audio, cos_b, nsin_b, t, hop)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_stft_fft_library_refused_raises(dev, monkeypatch):
+    """When the FFT library cannot be had, an n_fft of the FFT route
+    raises; it does not run the direct kernel or the plain version."""
+    real = native.library
+
+    def refuse(name):
+        if name == "stft_fft":
+            raise RuntimeError("stft_fft refused")
+        return real(name)
+
+    monkeypatch.setattr(native, "library", refuse)
+    audio, _, _ = _stft_inputs(dev, 1, 5, 320, 160, 0)
+    before = dict(native.launch_counts)
+    with pytest.raises(RuntimeError, match="stft_fft refused"):
+        stft_logmag(audio, 320, 160, 5)
+    assert native.launch_counts == before
 
 
 @pytest.mark.parametrize("t,f", [(16, 13), (37, 161), (100, 161)])

@@ -74,8 +74,7 @@ def test_stft_plain_matches_xla_twin():
     audio = batch["audio"]
     n_t = 1 + (audio.shape[1] - N_FFT) // HOP
     cos_b, nsin_b = fe.dft_matrices(N_FFT, "hamming")
-    got = stft_logmag(torch.from_numpy(audio), torch.from_numpy(cos_b),
-                      torch.from_numpy(nsin_b), n_t, HOP)
+    got = stft_logmag(torch.from_numpy(audio), N_FFT, HOP, n_t, "hamming")
     frames = jfe.frame_signal(jnp.asarray(audio), N_FFT, HOP, prepadded=True)
     re = jnp.einsum("btn,nf->btf", frames, cos_b, precision="highest")
     im = jnp.einsum("btn,nf->btf", frames, nsin_b, precision="highest")

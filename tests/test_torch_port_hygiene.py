@@ -65,9 +65,9 @@ def test_wrappers_refuse_other_devices():
 
     meta = torch.device("meta")
     with pytest.raises(ValueError):
-        stft_logmag(torch.empty(2, 800, device=meta),
-                    torch.empty(320, 161, device=meta),
-                    torch.empty(320, 161, device=meta), 4, 160)
+        stft_logmag(torch.empty(2, 800, device=meta), 320, 160, 4)
+    with pytest.raises(ValueError):
+        stft_logmag(torch.empty(2, 800, device=meta), 448, 160, 4)
     w = [torch.empty(s, device=meta) for s in ((3, 3, 1, 8), (8,),
                                                (3, 3, 8, 8), (8,))]
     with pytest.raises(ValueError):

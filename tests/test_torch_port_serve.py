@@ -125,3 +125,12 @@ def test_breakdown_stages_on_cpu(tmp_path, monkeypatch, capsys):
     assert all(v >= 0.0 for v in ms.values())
     assert 1 <= steps <= 300
     assert "decode steps; stage ms:" in capsys.readouterr().out
+
+
+def test_breakdown_short_kernel_names():
+    from mtl_tpu_torch.cli.breakdown import _short_name
+
+    assert _short_name("(anonymous namespace)::stft_fft_kernel<320, 2117u>"
+                       "(float const*, int)") == "stft_fft_kernel"
+    assert _short_name("void at::native::reduce_kernel<512, 1>(x)") == \
+        "at::native::reduce_kernel"
