@@ -30,7 +30,25 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    versions) must give the same features, encoder output and decode-step
    logits; the counters are zeroed before the card's run and read after
    it, and both f32 VGG kernels must have launched;
-8. prints the kernels as one JSON line and, last, the result line.
+8. trains the flagship width through the port's
+   ``meta_transfer_train_main`` on ``cuda`` (bf16, dropout 0.1) on a
+   3-task corpus of 4-7.9 s utterances (one 800-frame bucket; the last
+   task is the code-switched query and valid set), 3 tasks of 8 support
+   and 8 query utterances, 6 meta steps with an evaluation and a
+   checkpoint every 3; every TRAIN LOSS must be finite, the checkpoints
+   must exist, and a ``--continue-from`` of the last must resume at
+   iteration 7. The counters are zeroed before the run and read after it:
+   the FFT STFT, both bf16 VGG kernels (at least 2K forward launches a
+   step each) and the VGG stack's backward (at least 2K a step) must have
+   run, the direct STFT never. Then one meta step is timed on device-side
+   batches (median over the steps after the first), with the peak memory,
+   and one step is profiled: its busy share and device time by kernel;
+9. checks one meta step at f32 on the card (kernels, f32 routes) against
+   the same step on the CPU (plain versions) from the same weights and
+   batch (2 tasks of 2 utterances, 400 frames): outer loss, outer
+   gradients and the params after the Adam update; the f32 VGG kernels and
+   the stack's backward must have launched;
+10. prints the kernels as one JSON line and, last, the result line.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -43,6 +61,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,9 +116,10 @@ def _device_ms(fn, kernel, iters=20):
     times = [e.device_time for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.name]
-    check(len(times) == iters, f"profiler saw {len(times)} {kernel} "
-                               f"launches of {iters}")
-    return sum(times) / 1e3 / iters
+    # the profiler may drop an event now and then: average over those seen
+    check(iters // 2 <= len(times) <= iters,
+          f"profiler saw {len(times)} {kernel} launches of {iters}")
+    return sum(times) / 1e3 / len(times)
 
 
 def _bound_ms(nbytes, flops, peak):
@@ -282,7 +302,13 @@ def check_kernels(torch, dev):
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
             bound, by = _bound_ms(_nbytes(x, *ws, out), flops, PEAK_F32)
             note = f"{flops:.3e} flop at f32 67 TFLOP/s"
-            library_ms = None  # the f32 cuDNN chain is the plain version
+            xl = (x.reshape(B, t_img, f_img, c_in).permute(0, 3, 1, 2)
+                  .contiguous(memory_format=torch.channels_last))
+            wl = [hwio_to_oihw(w).contiguous(
+                memory_format=torch.channels_last) if w.dim() == 4 else w
+                  for w in ws]
+            # the f32 cuDNN chain in channels_last (TF32 off)
+            library_ms = _time_ms(lambda: library(xl, *wl))
             source, path = "mtl_tpu_torch/csrc/vgg.cu", "parity"
             kernel = "vgg_block_kernel"
         k_ms = _device_ms(lambda: fn(x, *ws, out_dtype=dtype), kernel)
@@ -404,6 +430,289 @@ def check_against_plain(torch, dev, ckpt, corpus_dir):
     return counts
 
 
+TRAIN_FLAGS = [  # the flagship width (the CLI's defaults differ)
+    "--feat_extractor", "vgg_cnn", "--num-enc-layers", "2",
+    "--num-dec-layers", "4", "--num-heads", "8", "--dim-model", "512",
+    "--dim-key", "64", "--dim-value", "64", "--dim-inner", "512",
+    "--dim-emb", "512", "--r", "100", "--dtype", "bfloat16"]
+K_TASKS, K_SHOT, TRAIN_STEPS = 3, 8, 6
+
+
+class _Recorder:
+    """An outer optimizer that keeps the outer gradients and moves nothing
+    (the meta step's gradients, read out)."""
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().float().cpu() for k, g in grads.items()}
+        return state
+
+
+def _busy_ms(events, torch):
+    """Union of the device kernels' intervals, in ms."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+KERNEL_GROUPS = (  # (group, substrings of a kernel's name), first match
+    ("port kernels: vgg_tc forward", ("vgg_block",)),
+    ("port kernels: stft_fft", ("stft",)),
+    ("cuDNN convs + layouts (VGG backward recompute)",
+     ("conv", "cudnn", "fprop", "dgrad", "wgrad", "nchw", "nhwc",
+      "implicit")),
+    ("GEMMs (linears, attention products)", ("gemm", "cutlass", "matmul",
+                                             "gemv")),
+    ("multi-tensor foreach (inner SGD, clip, Adam)",
+     ("multi_tensor", "foreach")),
+    ("max-pool", ("pool",)),
+    ("softmax / log-softmax", ("softmax",)),
+    ("reductions", ("reduce",)),
+    ("elementwise + copies", ("elementwise", "vectorized", "copy", "fill",
+                              "unrolled", "where", "cat")),
+)
+
+
+def train(torch, dev, work):
+    """Phase 8. Returns (launch counts of the main run, corpus dir)."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+    from mtl_tpu_torch.config import build_parser, config_from_args
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.train.optim import make_meta_optimizers
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    corpus = os.path.join(work, "train_corpus")
+    manifests, labels = make_synthetic_corpus(
+        corpus, num_tasks=K_TASKS, utts_per_task=16, min_sec=4.0,
+        max_sec=7.9, seed=SEED + 1)
+    models = os.path.join(work, "train_models")
+    argv = (["--train-manifest-list", *manifests, "--valid-manifest-list",
+             manifests[-1], "--labels-path", labels, "--device", dev.type,
+             "--k-train", str(K_SHOT), "--k-valid", str(K_SHOT),
+             "--evaluate-every", "3", "--save-every", "3", "--dropout", "0.1",
+             "--save-folder", models, "--src-buckets", "800"] + TRAIN_FLAGS)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = meta_transfer_train_main(
+            argv + ["--epochs", str(TRAIN_STEPS), "--name", "chip_train"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(native.launch_counts)
+    out = buf.getvalue()
+    with open(os.path.join(work, "train.txt"), "w", encoding="utf-8") as f:
+        f.write(out)
+    lines = [ln for ln in out.splitlines() if "TRAIN LOSS" in ln]
+    for ln in lines + [ln for ln in out.splitlines() if "VALID" in ln]:
+        print(ln, flush=True)
+    losses = [float(re.search(r"TRAIN LOSS:(\S+)", ln).group(1))
+              for ln in lines]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train losses {losses}")
+    check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
+    for tag in ("step_3", "step_6", "best_model"):
+        for name in ("model.pt", "train_state.pt", "meta.json"):
+            check(os.path.exists(os.path.join(models, "chip_train", tag,
+                                              name)), f"{tag}/{name}")
+    totals = [float(re.search(r"TOTAL TIME:(\S+)", ln).group(1))
+              for ln in lines]
+    per_it = sorted(b - a for a, b in zip(totals, totals[1:]))
+    print(f"train run: {TRAIN_STEPS} meta steps (K {K_TASKS}, {K_SHOT} + "
+          f"{K_SHOT} utterances, bf16) in {wall:.3f} s with 2 evaluations "
+          f"and 3 checkpoints; TOTAL TIME per iteration after the first "
+          f"(host clock, batch to device + step + train CER): median "
+          f"{per_it[len(per_it) // 2] * 1e3:.3f} ms", flush=True)
+    print(f"launches in the train run: {counts}", flush=True)
+    need = 2 * K_TASKS * TRAIN_STEPS
+    check(all(counts[k] >= need for k in ("vgg_block1", "vgg_block2",
+                                          "vgg_stack_bwd"))
+          and counts["stft_logmag"] >= (K_TASKS + 1) * TRAIN_STEPS
+          and counts["stft_logmag_direct"] == 0,
+          f"the train run must launch each VGG kernel and the backward "
+          f">= {need} times, the FFT STFT >= {(K_TASKS + 1) * TRAIN_STEPS},"
+          f" the direct STFT never: {counts}")
+
+    # resume from the last checkpoint: iterations 7 and 8
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = meta_transfer_train_main(argv + [
+            "--epochs", str(TRAIN_STEPS + 2), "--name", "chip_train_resume",
+            "--continue-from", os.path.join(models, "chip_train", "step_6")])
+    its = [int(x) for x in re.findall(r"\(Iteration (\d+)\) TRAIN LOSS",
+                                      buf.getvalue())]
+    check(its == [TRAIN_STEPS + 1, TRAIN_STEPS + 2]
+          and state.opt_state.count == TRAIN_STEPS + 2,
+          f"resume ran iterations {its}, Adam count {state.opt_state.count}")
+    print(f"resume from step_6: iterations {its}, Adam count "
+          f"{state.opt_state.count}", flush=True)
+
+    # one meta step, timed and profiled on device-side batches
+    cfg = config_from_args(build_parser("").parse_args(argv + [
+        "--name", "chip_train_timing"]))
+    with open(labels, encoding="utf-8") as f:
+        vocab = Vocab.from_labels(json.load(f))
+    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=SEED)
+    batches = [[batch_to_device(b, dev) for b in ds.sample_meta_batch(
+        K_SHOT, K_SHOT)] for _ in range(6)]
+    model = build_model(cfg, len(vocab), dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    _, opt = make_meta_optimizers(cfg)
+    state = init_train_state(model, opt)
+    step = make_meta_step(model, cfg, opt)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for sup, qry in batches[:5]:
+        t0 = time.perf_counter()
+        state, m = step(state, sup, qry, gen)
+        float(m["outer_loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    steady = sorted(ms[1:])
+    print(f"meta step (flagship, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}, "
+          f"{batches[0][0]['audio'].shape[-1]} samples a row): "
+          + ", ".join(f"{v:.3f}" for v in ms) + f" ms; median after the "
+          f"first {(steady[1] + steady[2]) / 2:.3f} ms; peak memory "
+          f"{peak:.1f} MiB", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, *batches[5], gen)
+        float(m["outer_loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = _busy_ms(events, torch)
+    by_name = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    groups = {}
+    for name, t in by_name.items():
+        low = name.lower()
+        g = next((g for g, keys in KERNEL_GROUPS
+                  if any(k in low for k in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + t
+    print(f"profiled meta step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}; device ms by "
+          f"group: " + "; ".join(f"{g} {t:.3f}" for g, t in sorted(
+              groups.items(), key=lambda x: -x[1])), flush=True)
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
+        print(f"  top device op {t:9.3f} ms  {name[:110]}", flush=True)
+    host_ops = [e for e in events if e.cpu_parent is None
+                and e.device_type == torch.autograd.DeviceType.CPU]
+    print(f"host: {len(host_ops)} top-level ops in the step "
+          f"({wall_ms * 1e3 / max(len(host_ops), 1):.1f} us of wall each, "
+          f"profiler on); by self CPU time:", flush=True)
+    for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total
+                    )[:10]:
+        print(f"  top host op {a.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{a.count:6d} calls  {a.key[:80]}", flush=True)
+    return counts, corpus
+
+
+def train_parity(torch, dev, corpus):
+    """Phase 9: one f32 meta step on the card (kernels) against the CPU
+    (plain versions). Returns the card run's launch counts."""
+    from mtl_tpu_torch.config import build_parser, config_from_args
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.train.optim import Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    m0, m2 = (os.path.join(corpus, f"manifest_task{i}.csv") for i in (0, 2))
+    cfg = config_from_args(build_parser("").parse_args(
+        ["--labels-path", os.path.join(corpus, "labels.json"),
+         "--dropout", "0"] + TRAIN_FLAGS[:-1] + ["float32"]))
+    with open(cfg.data.labels_path, encoding="utf-8") as f:
+        vocab = Vocab.from_labels(json.load(f))
+    ds = SpectrogramDataset(vocab, cfg, [m0, m2], is_train=True, seed=SEED)
+    sup = [ds._collate(ds.sample_pairs(2, i), 400, 64) for i in (0, 1)]
+    support = {k: np.stack([b[k] for b in sup]) for k in sup[0]}
+    query = ds._collate(ds.sample_pairs(2, 1), 400, 64)
+    ref = build_model(cfg, len(vocab))
+    init_weights(ref, torch.Generator().manual_seed(SEED + 2))
+    rng = np.random.RandomState(SEED)
+    with torch.no_grad():  # trained conv biases are not zero
+        for conv in ref.conv.convs:
+            conv.bias.copy_(torch.from_numpy(
+                rng.randn(conv.bias.numel()).astype(np.float32) * 0.1))
+    weights = {k: v.clone() for k, v in ref.state_dict().items()}
+    lr = cfg.train.meta_lr
+    res = []  # [card, cpu]
+    for d in (dev, torch.device("cpu")):
+        out = {}
+        for name, opt in (("grads", _Recorder()), ("adam", Adam(lr))):
+            model = build_model(cfg, len(vocab), d)
+            model.load_state_dict(weights)
+            state = init_train_state(model, Adam(lr))
+            if d == dev and name == "adam":
+                torch.cuda.synchronize()
+                native.reset_launch_counts()
+            state, m = make_meta_step(model, cfg, opt)(
+                state, batch_to_device(support, d), batch_to_device(query, d))
+            out[name] = opt.grads if name == "grads" else {
+                k: v.detach().cpu() for k, v in state.params.items()}
+            out[f"{name}_loss"] = float(m["outer_loss"])
+            if d == dev and name == "adam":
+                torch.cuda.synchronize()
+                counts = dict(native.launch_counts)
+        res.append(out)
+    card, cpu = res
+    for key in ("grads_loss", "adam_loss"):
+        print(f"train parity {key}: card {card[key]:.7f} cpu {cpu[key]:.7f}",
+              flush=True)
+        check(math.isclose(card[key], cpu[key], rel_tol=1e-3),
+              f"outer loss card {card[key]} cpu {cpu[key]}")
+    scale = max(float(g.abs().max()) for g in cpu["grads"].values())
+    gerr = max(float((card["grads"][k] - g).abs().max())
+               for k, g in cpu["grads"].items())
+    # f32 on both sides, TF32 off: summation order only
+    for k, g in cpu["grads"].items():
+        torch.testing.assert_close(card["grads"][k], g, rtol=1e-3,
+                                   atol=1e-3 * scale)
+    # Adam's first step moves each weight by about lr * sign(g); entries
+    # whose gradient is below 1e-3 of the largest may take either sign
+    # on either side, the rest must agree to 0.1 lr
+    perr, checked = 0.0, 0
+    for k, p in cpu["adam"].items():
+        d = (card["adam"][k] - p).abs()
+        check(float(d.max()) <= 2 * lr + 1e-7, f"{k} moved {float(d.max())}")
+        sure = cpu["grads"][k].abs() > 1e-3 * scale
+        if sure.any():
+            perr = max(perr, float(d[sure].max()))
+            checked += int(sure.sum())
+    check(perr <= 0.1 * lr, f"post-step params differ by {perr}")
+    print(f"train parity (f32, 2 tasks x 2 utterances, 400 frames): outer "
+          f"grads max_abs_err {gerr:.3e} of max {scale:.3e}; post-step "
+          f"params max_abs_err {perr:.3e} (meta_lr {lr}) over {checked} "
+          f"entries with |g| > 1e-3 max", flush=True)
+    print(f"launches in the f32 train parity run: {counts}", flush=True)
+    check(all(counts[k] >= 4 for k in ("vgg_block1_f32", "vgg_block2_f32",
+                                       "vgg_stack_bwd")),
+          f"the f32 step must run the f32 VGG kernels and the backward: "
+          f"{counts}")
+    return counts
+
+
 def main():
     import torch
 
@@ -477,6 +786,12 @@ def main():
     parity = check_against_plain(torch, dev, ckpt, corpus_dir)
     print(f"launches in the f32 parity run: {parity}", flush=True)
 
+    # 8. train the flagship width through the CLI; 9. f32 train parity
+    t0 = time.perf_counter()
+    _, train_corpus = train(torch, dev, WORK)
+    train_parity(torch, dev, train_corpus)
+    print(f"train phases {time.perf_counter() - t0:.1f} s", flush=True)
+
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the STFT on the served path, the f32 VGG kernels on the
     # f32 parity path
@@ -488,7 +803,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 8. results
+    # 10. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -1,5 +1,8 @@
 """ASR CLI entry points of the port (mtl_tpu/cli/asr.py parity).
 
+* ``meta_transfer_train_main`` — meta_transfer_train.py: the first-order
+  meta-transfer trainer (``TransientTrainer``), console script
+  ``mtl-torch-meta-transfer-train``;
 * ``test_main`` — test.py: greedy decode of the test manifests from a port
   checkpoint, CER/WER + EN/ZH CER report. Beam search and LM fusion are not
   ported yet.
@@ -15,11 +18,37 @@ from ..config import build_parser, config_from_args
 from ..data.dataset import SpectrogramDataset
 from ..data.vocab import post_process
 from ..decode.greedy import greedy_search
+from ..models.transformer import build_model
 from ..train.steps import prepare_features
+from ..train.trainer import TransientTrainer
 from ..utils.checkpoint import load_checkpoint
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer, calculate_cer_en_zh, calculate_wer
-from .common import load_asr_model, resolve_device, setup
+from .common import (build_datasets, build_vocab, load_asr_model,
+                     maybe_resume, resolve_device, setup)
+
+
+def meta_transfer_train_main(argv=None):
+    """meta_transfer_train.py parity (mtl_tpu/cli/asr.py:50-75): builds
+    the vocab, datasets and model (from the checkpoint's config with
+    ``--continue-from``) and runs the first-order meta-transfer trainer on
+    ``--device``. Returns the final ``TrainState``."""
+    parser = build_parser("Transformer ASR meta training (PyTorch port)")
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    device = resolve_device(cfg.device)
+    if args.num_meta_test:
+        raise ValueError("--num-meta-test is not ported yet")
+    setup(cfg)
+    cfg, vocab, start_it, metrics = maybe_resume(cfg)
+    if vocab is None:
+        vocab = build_vocab(cfg)
+    train_ds, valid_sets = build_datasets(cfg, vocab)
+    model = build_model(cfg, len(vocab), device)
+    trainer = TransientTrainer(model, cfg, vocab, device)
+    log_print("Transient Trainer is initialized")
+    return trainer.train(train_ds, valid_sets, start_it=start_it,
+                         num_it=cfg.train.epochs, last_metrics=metrics)
 
 
 def test_main(argv=None):

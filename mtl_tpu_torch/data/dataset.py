@@ -1,15 +1,21 @@
-"""Manifest dataset + static-shape batching for serving (trimmed copy of
+"""Multi-manifest dataset + static-shape batching (copy of
 mtl_tpu/data/dataset.py).
 
 Reference parity (utils/data_loader.py:170-500): manifests are CSVs of
 ``audio_path,transcript_path`` rows; transcripts are ``.txt`` files (read,
 ``'\\n'`` stripped, lowercased, with a leading space prepended) or inline
 strings (:342-361), OOV chars dropped; features are truncated at
-``src_max_len`` frames (:263,331).
+``src_max_len`` frames (:263,331). Multi-manifest training uses round-robin
+``index % num_manifests`` with ``max_size`` forced to 30000 (:198-202);
+``--train-partition-list`` restricts per-manifest sampling to a prefix with
+uniform probabilities (:211-222); ``sample_meta_batch`` draws the support
+and query batches of one meta iteration (:245-321).
 
 Batches are padded to static bucket shapes and carry raw prepadded
-waveforms; the STFT front-end runs on the device. Training-side sampling
-(meta batches, partitions, augmentation) is not ported yet.
+waveforms; the STFT front-end runs on the device. The draws come from one
+``np.random.RandomState(seed)`` in the JAX package's order, so both
+packages draw the same utterances for one seed. Waveform augmentation and
+noise injection are not ported yet.
 """
 
 from __future__ import annotations
@@ -117,34 +123,73 @@ def collate_audio(
 
 
 class SpectrogramDataset:
-    """Evaluation dataset over the raw waveforms of its manifests; as in the
-    JAX package, index i of an evaluation set reads row i of the first
-    manifest (cyclically)."""
+    """Multi-manifest dataset over raw waveforms (device STFT downstream).
+    Index i of an evaluation set reads row i of the first manifest
+    (cyclically); a training set reads manifest i % M, row i // M."""
 
     def __init__(self, vocab: Vocab, cfg: Config,
                  manifest_filepath_list: Sequence[str],
-                 normalize: bool = True):
+                 normalize: bool = True, augment: bool = False,
+                 is_train: bool = False,
+                 partitions: Optional[Sequence[float]] = None,
+                 seed: int = 0):
+        if augment or cfg.audio.noise_dir:
+            raise ValueError("--augment and --noise-dir are not ported yet")
         self.vocab = vocab
         self.cfg = cfg
         self.normalize = normalize
+        self.is_train = is_train
+        self.rng = np.random.RandomState(seed)
         self.ids_list = [read_manifest(p) for p in manifest_filepath_list]
         self.max_size = (max(len(ids) for ids in self.ids_list)
                          * len(self.ids_list))
+        if is_train and len(self.ids_list) > 1:
+            self.max_size = 30000  # reference multi-manifest cap (:198-202)
+        if partitions is not None:
+            self.proba = []
+            for ids, part in zip(self.ids_list, partitions):
+                p = np.zeros(len(ids))
+                part_len = max(1, int(len(ids) * part))
+                p[:part_len] = 1.0 / part_len
+                self.proba.append(p)
+            self.part_len = max(1, int(len(self.ids_list[0]) * partitions[0]))
+        else:
+            self.proba = [np.full(len(ids), 1.0 / len(ids))
+                          for ids in self.ids_list]
+            self.part_len = self.max_size
+        # bounded decoded-waveform cache: k-shot sampling revisits
+        # utterances constantly, and decoding would otherwise pace the step
+        self._wave_cache: Dict[str, np.ndarray] = {}
+        self._wave_cache_cap = int(cfg.data.wave_cache_size)
 
     def __len__(self) -> int:
-        return self.max_size
+        return self.part_len
+
+    def _load_wave(self, audio_path: str) -> np.ndarray:
+        cached = self._wave_cache.get(audio_path)
+        if cached is not None:
+            return cached
+        y = load_audio(audio_path, self.cfg.audio.sample_rate)
+        if self._wave_cache_cap > 0:
+            if len(self._wave_cache) >= self._wave_cache_cap:
+                self._wave_cache.pop(next(iter(self._wave_cache)))
+            self._wave_cache[audio_path] = y
+        return y
 
     def get_utterance(self, manifest_id: int,
                       sample_id: int) -> Tuple[np.ndarray, List[int]]:
         ids = self.ids_list[manifest_id]
         audio_path, transcript_path = ids[sample_id % len(ids)]
         return (
-            load_audio(audio_path, self.cfg.audio.sample_rate),
+            self._load_wave(audio_path),
             parse_transcript(transcript_path, self.vocab,
                              self.cfg.data.input_type),
         )
 
     def __getitem__(self, index: int) -> Tuple[np.ndarray, List[int]]:
+        if self.is_train:
+            n = len(self.ids_list)
+            return self.get_utterance(index % n, index // n)
         return self.get_utterance(0, index)
 
     def _collate(self, pairs, force_frames=None, force_tgt=None):
@@ -155,6 +200,39 @@ class SpectrogramDataset:
             self.cfg.model.src_max_len, n_fft=self.cfg.audio.n_fft,
             force_frames=force_frames, force_tgt=force_tgt,
         )
+
+    def sample_pairs(self, k: int, manifest_id: int):
+        """Draw k (wave, transcript) pairs of one manifest with its
+        probabilities, from the dataset's RandomState."""
+        ids = self.ids_list[manifest_id]
+        chosen = self.rng.choice(np.arange(len(ids)), k,
+                                 p=self.proba[manifest_id], replace=True)
+        return [self.get_utterance(manifest_id, int(i)) for i in chosen]
+
+    def sample_meta_batch(self, k_train: int, k_valid: int,
+                          query_manifest_id: int = -1):
+        """One meta iteration's data (mtl_tpu/data/dataset.py:276-322):
+        support batches of k_train draws from every manifest, stacked
+        [K, B, ...], and the query batch of k_valid draws from the last
+        manifest (the code-switched target, transient_trainer.py:168). All
+        share one (frames, target) bucket so that the tasks stack."""
+        num_tasks = len(self.ids_list)
+        support_pairs = [self.sample_pairs(k_train, m)
+                         for m in range(num_tasks)]
+        query_pairs = self.sample_pairs(k_valid,
+                                        query_manifest_id % num_tasks)
+        hop = self.cfg.audio.hop_length
+        all_pairs = [p for task in support_pairs for p in task] + query_pairs
+        max_samples = (self.cfg.model.src_max_len - 1) * hop
+        max_frames = max(1 + min(len(w), max_samples) // hop
+                         for w, _ in all_pairs)
+        max_tgt = max(max(1, len(t)) for _, t in all_pairs)
+        bucket_t = pick_bucket(max_frames, self.cfg.data.src_bucket_frames)
+        bucket_l = pick_bucket(max_tgt, self.cfg.data.tgt_bucket_len)
+        support = [self._collate(p, bucket_t, bucket_l)
+                   for p in support_pairs]
+        support = {k: np.stack([b[k] for b in support]) for k in support[0]}
+        return support, self._collate(query_pairs, bucket_t, bucket_l)
 
     def iter_batches(
         self, batch_size: int, shuffle: bool = True,

@@ -14,6 +14,12 @@ package):
   row is zeroed at lookup, not in the weights);
 * conv ``kernel`` keeps the flax HWIO layout [3(f), 3(t), C_in, C_out],
   which the port's VGG kernels take.
+
+The training state moves the same way: optax Adam's ``mu`` and ``nu`` are
+trees shaped like the params, so they map by the same rules onto the port's
+``AdamState`` (keyed by parameter name), and ``count`` is the step count.
+A JAX ``TrainState`` (step, params, ``opt_state[0]`` of ``optax.adam``)
+can so continue in the port and back.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .train.optim import AdamState
 
 
 def _flatten(tree, prefix=()):
@@ -83,3 +91,17 @@ def torch_to_flax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a)
     return {"params": tree}
+
+
+def adam_state_from_optax(mu, nu, count) -> AdamState:
+    """optax ``ScaleByAdamState`` fields (param-shaped ``mu``/``nu`` trees,
+    ``count``) -> the port's ``AdamState``."""
+    return AdamState(int(np.asarray(count)), flax_params_to_torch(mu),
+                     flax_params_to_torch(nu))
+
+
+def adam_state_to_optax(state: AdamState):
+    """The port's ``AdamState`` -> (mu tree, nu tree, count as int32), the
+    fields of optax's ``ScaleByAdamState`` in the Flax param layout."""
+    return (torch_to_flax_params(state.mu), torch_to_flax_params(state.nu),
+            np.asarray(state.count, np.int32))

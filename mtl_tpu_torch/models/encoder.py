@@ -3,13 +3,16 @@ modules/encoder.py:15-106).
 
 Input projection (rank-r factorized only with ``is_factorized``) +
 LayerNorm + sinusoidal PE (no input dropout: the reference never applies
-it), then ``num_layers`` x [self-attention -> *non_pad_mask -> post-LN FFN
--> *non_pad_mask]. The masks come from the lengths the caller passes: the
-raw, un-downsampled frame counts against the downsampled time axis, as the
-reference does.
+it, mtl_tpu/models/encoder.py:4-5), then ``num_layers`` x [self-attention
+-> *non_pad_mask -> post-LN FFN -> *non_pad_mask]. The masks come from the
+lengths the caller passes: the raw, un-downsampled frame counts against
+the downsampled time axis, as the reference does. ``gen`` is the dropout
+generator (None: deterministic).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -21,25 +24,29 @@ from .layers import (FactorizedDense, FeedForward, MultiHeadAttention,
 
 class EncoderLayer(nn.Module):
     def __init__(self, num_heads: int, dim_model: int, dim_inner: int,
-                 dim_key: int, dim_value: int, is_factorized: bool = False,
-                 r: int = 100, dtype: torch.dtype = torch.bfloat16):
+                 dim_key: int, dim_value: int, dropout: float = 0.1,
+                 is_factorized: bool = False, r: int = 100,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.self_attn = MultiHeadAttention(num_heads, dim_model, dim_key,
-                                            dim_value, r=r, dtype=dtype)
-        self.pos_ffn = FeedForward(dim_model, dim_inner,
+                                            dim_value, dropout=dropout, r=r,
+                                            dtype=dtype)
+        self.pos_ffn = FeedForward(dim_model, dim_inner, dropout=dropout,
                                    factorized=is_factorized, r=r, dtype=dtype)
 
-    def forward(self, x, non_pad_mask, self_attn_mask):
-        out = self.self_attn(x, x, x, mask=self_attn_mask)
+    def forward(self, x, non_pad_mask, self_attn_mask,
+                gen: Optional[torch.Generator] = None):
+        out = self.self_attn(x, x, x, mask=self_attn_mask, gen=gen)
         out = out * non_pad_mask.to(out.dtype)
-        out = self.pos_ffn(out)
+        out = self.pos_ffn(out, gen)
         return out * non_pad_mask.to(out.dtype)
 
 
 class Encoder(nn.Module):
     def __init__(self, num_layers: int, num_heads: int, dim_model: int,
                  dim_key: int, dim_value: int, dim_input: int, dim_inner: int,
-                 src_max_length: int = 2500, is_factorized: bool = False,
+                 dropout: float = 0.1, src_max_length: int = 2500,
+                 is_factorized: bool = False,
                  r: int = 100, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
@@ -50,11 +57,13 @@ class Encoder(nn.Module):
                                                       src_max_length)
         self.layers = nn.ModuleList(
             EncoderLayer(num_heads, dim_model, dim_inner, dim_key, dim_value,
-                         is_factorized=is_factorized, r=r, dtype=dtype)
+                         dropout=dropout, is_factorized=is_factorized, r=r,
+                         dtype=dtype)
             for _ in range(num_layers))
 
     def forward(self, padded_input: torch.Tensor,
-                input_lengths: torch.Tensor) -> torch.Tensor:
+                input_lengths: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """padded_input [B, T, D_input]; input_lengths [B] (raw lengths)."""
         t = padded_input.shape[1]
         non_pad_mask = non_pad_mask_from_lengths(input_lengths, t)
@@ -62,5 +71,5 @@ class Encoder(nn.Module):
         h = self.layer_norm_input(self.input_linear(padded_input).float())
         h = (h + self.positional_encoding(t)).to(self.dtype)
         for layer in self.layers:
-            h = layer(h, non_pad_mask, self_attn_mask)
+            h = layer(h, non_pad_mask, self_attn_mask, gen)
         return h

@@ -5,12 +5,18 @@ Parity targets (reference modules/common_layers.py): sinusoidal
 (:110-158, optionally rank-r factorized); rank-r ``MultiHeadAttention``
 (FactorizedMultiHeadAttention, :238-306) in every layer.
 
-Numerics follow the JAX package: linears run in the model's compute dtype
-(their weights are stored in it; flax casts f32 params at each call, which
-is the same function), attention scores, softmax, LayerNorm (eps 1e-5) and
-the residual add run in f32, with casts at the same points. Attention is a
-plain einsum + softmax. Dropout is absent: this is the serving slice.
-Decoding keeps an explicit KV cache, updated in place.
+Numerics follow the JAX package. Parameters are float32 (flax's
+``param_dtype``); every linear casts its input, weight and bias to the
+model's compute dtype at the call, as flax's ``nn.Dense(dtype=...)`` does,
+so training updates the f32 master weights. A serving copy may hold the
+linear weights in the compute dtype already (``transformer.py:
+serving_copy``): the casts are then no-ops and compute the same values.
+Attention scores, softmax, LayerNorm (eps 1e-5) and the residual add run in
+f32, with casts at the same points. Dropout sits where the JAX package puts
+it: the FFN output (mtl_tpu/models/layers.py:115), the attention
+probabilities (:179) and the attention output (:190); it draws from the
+``torch.Generator`` the caller passes and is the identity without one
+(deterministic). Decoding keeps an explicit KV cache, updated in place.
 """
 
 from __future__ import annotations
@@ -51,9 +57,29 @@ class PositionalEncoding(nn.Module):
         return self.pe[:, start:start + length]
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate), in x's dtype; the identity when ``gen`` is
+    None (deterministic) or the rate is 0."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """``nn.Dense(dtype=dtype)`` on f32 params: input, weight and bias in
+    the compute dtype (no copies when they are in it already)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
 class FactorizedDense(nn.Module):
     """Rank-r bottleneck linear: x @ W_a (no bias) @ W_b (+ bias); ``r=None``
-    is a single linear (``full``)."""
+    is a single linear (``full``). Parameters f32, computed in ``dtype``
+    (mtl_tpu/models/layers.py:64-91)."""
 
     def __init__(self, in_features: int, features: int,
                  r: Optional[int] = None, use_bias: bool = True,
@@ -61,17 +87,15 @@ class FactorizedDense(nn.Module):
         super().__init__()
         self.dtype, self.r = dtype, r
         if r is not None:
-            self.a = nn.Linear(in_features, r, bias=False, dtype=dtype)
-            self.b = nn.Linear(r, features, bias=use_bias, dtype=dtype)
+            self.a = nn.Linear(in_features, r, bias=False)
+            self.b = nn.Linear(r, features, bias=use_bias)
         else:
-            self.full = nn.Linear(in_features, features, bias=use_bias,
-                                  dtype=dtype)
+            self.full = nn.Linear(in_features, features, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
         if self.r is None:
-            return self.full(x)
-        return self.b(self.a(x))
+            return linear(x, self.full, self.dtype)
+        return linear(linear(x, self.a, self.dtype), self.b, self.dtype)
 
 
 def _layer_norm(dim: int) -> nn.LayerNorm:
@@ -82,17 +106,20 @@ def _layer_norm(dim: int) -> nn.LayerNorm:
 class FeedForward(nn.Module):
     """Post-LN residual FFN; optionally rank-r factorized linears."""
 
-    def __init__(self, dim_model: int, dim_ff: int, factorized: bool = False,
-                 r: int = 100, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dim_model: int, dim_ff: int, dropout: float = 0.1,
+                 factorized: bool = False, r: int = 100,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         rank = r if factorized else None
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         self.linear_1 = FactorizedDense(dim_model, dim_ff, r=rank, dtype=dtype)
         self.linear_2 = FactorizedDense(dim_ff, dim_model, r=rank, dtype=dtype)
         self.layer_norm = _layer_norm(dim_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.linear_2(F.relu(self.linear_1(x.to(self.dtype))))
+        h = dropout(h, self.dropout, gen)
         return self.layer_norm(h.float() + x.float()).to(x.dtype)
 
 
@@ -100,11 +127,11 @@ class MultiHeadAttention(nn.Module):
     """Rank-r factorized multi-head attention with post-LN residual."""
 
     def __init__(self, num_heads: int, dim_model: int, dim_key: int,
-                 dim_value: int, r: Optional[int] = 100,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dim_value: int, dropout: float = 0.1,
+                 r: Optional[int] = 100, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.num_heads, self.dim_key, self.dim_value = num_heads, dim_key, dim_value
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         h = num_heads
         self.query_linear = FactorizedDense(dim_model, h * dim_key, r, dtype=dtype)
         self.key_linear = FactorizedDense(dim_model, h * dim_key, r, dtype=dtype)
@@ -128,7 +155,8 @@ class MultiHeadAttention(nn.Module):
         return k, v
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
+                mask: Optional[torch.Tensor],
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """q [B,Tq,H,Dk], k [B,Tk,H,Dk], v [B,Tk,H,Dv], mask [B,Tq,Tk]
         (True = masked) -> [B, Tq, H*Dv]. Products accumulate in f32, as
         ``preferred_element_type=f32`` does in the JAX package."""
@@ -137,23 +165,23 @@ class MultiHeadAttention(nn.Module):
         scores = scores / math.sqrt(self.dim_key)
         if mask is not None:
             scores = scores.masked_fill(mask[:, None], float("-inf"))
-        attn = torch.softmax(scores, dim=-1)
+        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn.to(self.dtype).float(),
                            v.float()).to(self.dtype)
         return ctx.reshape(b, t_q, self.num_heads * self.dim_value)
 
-    def _finish(self, ctx: torch.Tensor,
-                residual: torch.Tensor) -> torch.Tensor:
-        out = self.output_linear(ctx)
+    def _finish(self, ctx: torch.Tensor, residual: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = dropout(self.output_linear(ctx), self.dropout, gen)
         return self.layer_norm(out.float() + residual.float()).to(
             residual.dtype)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
-                value: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                value: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         k, v = self.project_kv(key, value)
-        return self._finish(self._attend(self._q_heads(query), k, v, mask),
-                            query)
+        ctx = self._attend(self._q_heads(query), k, v, mask, gen)
+        return self._finish(ctx, query, gen)
 
     def decode_step(self, query_t: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, t: int

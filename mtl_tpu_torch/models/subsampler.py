@@ -5,7 +5,9 @@ paths of mtl_tpu/models/subsampler.py; reference models/asr/transformer.py:
 ``vgg_cnn``: 2 x [Conv3x3(SAME) -> ReLU -> Conv3x3(SAME) -> ReLU ->
 MaxPool2(VALID)] with 64 then 128 channels; time and freq both /4.
 ``large_cnn``: the same with 32 then 64 channels. Both blocks run as the
-fused VGG kernels of ``ops/vgg.py``. Input [B, T, F] f32; output
+fused VGG kernels of ``ops/vgg.py``, through ``vgg_stack``, whose backward
+recomputes the plain version (the ``fused_vgg_stack`` custom VJP of the JAX
+package). Input [B, T, F] f32; output
 [B, T//4, (F//4) * C] in the compute dtype, flattened (f, c) f-major like
 the JAX package. ``emb_cnn`` is not ported yet.
 """

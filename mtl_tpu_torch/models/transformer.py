@@ -1,12 +1,14 @@
-"""Top-level ASR Transformer, serving entry points (port of
-mtl_tpu/models/transformer.py; reference models/asr/transformer.py:14-240).
+"""Top-level ASR Transformer (port of mtl_tpu/models/transformer.py;
+reference models/asr/transformer.py:14-240).
 
-conv subsampler -> encoder, then incremental decoding: ``prepare_decode``
-(encoder output + cross-attention K/V per decoder layer), ``init_cache``
-and ``decode_step``. Construction from a Config mirrors
-init_transformer_model (utils/functions.py:307-351), including the derived
-``dim_input``. Parameters are named so that ``interop.py`` maps them one to
-one onto the JAX package's param tree.
+conv subsampler -> encoder -> decoder. ``forward`` is the teacher-forced
+pass of training (mtl_tpu/models/transformer.py:101-111); decoding runs
+``prepare_decode`` (encoder output + cross-attention K/V per decoder layer),
+``init_cache`` and ``decode_step``. ``serving_copy`` casts the linear
+weights to the compute dtype once, for decoding. Construction from a
+Config mirrors init_transformer_model (utils/functions.py:307-351),
+including the derived ``dim_input``. Parameters are named so that
+``interop.py`` maps them one to one onto the JAX package's param tree.
 """
 
 from __future__ import annotations
@@ -31,26 +33,40 @@ class ASRTransformer(nn.Module):
                  num_heads: int = 8, dim_model: int = 512, dim_key: int = 64,
                  dim_value: int = 64, dim_input: int = 5120,
                  dim_inner: int = 512, dim_emb: int = 512,
-                 src_max_length: int = 2500, trg_max_length: int = 1000,
-                 is_factorized: bool = False, r: int = 100,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dropout: float = 0.1, src_max_length: int = 2500,
+                 trg_max_length: int = 1000, is_factorized: bool = False,
+                 r: int = 100, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.dtype, self.dropout = dtype, dropout
         self.conv = FeatureExtractor(feat_extractor, dtype=dtype)
         self.encoder = Encoder(num_enc_layers, num_heads, dim_model, dim_key,
                                dim_value, dim_input, dim_inner,
-                               src_max_length=src_max_length,
+                               dropout=dropout, src_max_length=src_max_length,
                                is_factorized=is_factorized, r=r, dtype=dtype)
         self.decoder = Decoder(vocab_size, num_dec_layers, num_heads, dim_emb,
                                dim_model, dim_inner, dim_key, dim_value,
-                               trg_max_length=trg_max_length,
+                               dropout=dropout, trg_max_length=trg_max_length,
                                is_factorized=is_factorized, r=r, dtype=dtype)
 
-    def encode(self, features: torch.Tensor,
-               input_lengths: torch.Tensor) -> torch.Tensor:
+    def encode(self, features: torch.Tensor, input_lengths: torch.Tensor,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """features [B, T, F] log-spectrogram frames, input_lengths [B] raw
         frame counts (the encoder masks use them against downsampled time,
         the reference's quirk)."""
-        return self.encoder(self.conv(features), input_lengths)
+        return self.encoder(self.conv(features), input_lengths, gen)
+
+    def forward(self, features: torch.Tensor, input_lengths: torch.Tensor,
+                seq_in: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Teacher-forced logits B x L x V (f32). ``deterministic=False``
+        applies dropout, drawn from ``generator``."""
+        gen = None if deterministic else generator
+        if gen is None and not deterministic and self.dropout > 0:
+            raise ValueError("dropout needs a generator when not "
+                             "deterministic")
+        enc = self.encode(features, input_lengths, gen)
+        return self.decoder(seq_in, enc, input_lengths, gen)
 
     def prepare_decode(self, features: torch.Tensor,
                        input_lengths: torch.Tensor
@@ -78,10 +94,20 @@ def build_model(cfg: Config, vocab_size: int,
         num_enc_layers=m.num_enc_layers, num_dec_layers=m.num_dec_layers,
         num_heads=m.num_heads, dim_model=m.dim_model, dim_key=m.dim_key,
         dim_value=m.dim_value, dim_input=m.dim_input, dim_inner=m.dim_inner,
-        dim_emb=m.dim_emb, src_max_length=m.src_max_len,
+        dim_emb=m.dim_emb, dropout=m.dropout, src_max_length=m.src_max_len,
         trg_max_length=m.tgt_max_len, is_factorized=m.is_factorized, r=m.r,
         dtype=DTYPES[m.dtype],
     ).to(device)
+
+
+def serving_copy(model: ASRTransformer) -> ASRTransformer:
+    """Casts every linear's weight and bias to the compute dtype, once, in
+    place: the values flax's per-call cast gives, without a cast launch per
+    call on the decode loop. For decoding only; checkpoints hold f32."""
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            module.to(model.dtype)
+    return model
 
 
 @torch.no_grad()

@@ -21,6 +21,12 @@ def non_pad_mask_from_lengths(lengths: torch.Tensor,
     return (pos < lengths[:, None]).float()[:, :, None]
 
 
+def non_pad_mask_from_ids(seq: torch.Tensor, pad_idx: int) -> torch.Tensor:
+    """B x T ids -> B x T x 1 float mask; 1.0 where id != pad_idx
+    (mtl_tpu/ops/masks.py:32)."""
+    return (seq != pad_idx).float()[:, :, None]
+
+
 def attn_pad_mask_from_lengths(lengths: torch.Tensor, key_len: int,
                                query_len: int) -> torch.Tensor:
     """B -> B x T_q x T_k bool mask; True where the KEY position is pad."""
@@ -34,3 +40,10 @@ def attn_key_pad_mask(seq_k: torch.Tensor, query_len: int,
     """B x T_k ids -> B x T_q x T_k bool mask; True where key id == pad."""
     pad = seq_k == pad_idx
     return pad[:, None, :].expand(seq_k.shape[0], query_len, seq_k.shape[1])
+
+
+def subsequent_mask(seq_len: int, device=None) -> torch.Tensor:
+    """T -> T x T bool mask; True strictly above the diagonal (the future)
+    (mtl_tpu/ops/masks.py:65)."""
+    return torch.ones((seq_len, seq_len), dtype=torch.bool,
+                      device=device).triu(1)

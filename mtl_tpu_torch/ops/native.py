@@ -9,7 +9,9 @@ once, one ``nvcc`` process each.
 
 ``launch_counts`` is the one piece of module state in the port: every kernel
 wrapper adds one to its entry where it launches its kernel, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. ``vgg_stack_bwd`` counts the
+VGG stack's backward on the card (``ops/vgg.py:_VGGStack``), which recomputes
+the plain version rather than launching a kernel of this package.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ ENTRIES = {
 # (vgg.cu, counted as *_f32)
 launch_counts: Dict[str, int] = {"stft_logmag": 0, "stft_logmag_direct": 0,
                                  "vgg_block1": 0, "vgg_block2": 0,
-                                 "vgg_block1_f32": 0, "vgg_block2_f32": 0}
+                                 "vgg_block1_f32": 0, "vgg_block2_f32": 0,
+                                 "vgg_stack_bwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -21,6 +21,15 @@ A route that cannot launch raises; it never hands the work to the other
 route or to the plain version. On CPU tensors both run ``vgg_block_plain``,
 which computes the same two functions.
 
+``vgg_stack`` chains the two blocks as a ``torch.autograd.Function``, the
+counterpart of ``mtl_tpu/ops/vgg_pallas.py:fused_vgg_stack`` (:432-449):
+its forward runs the kernels (on CUDA tensors) and saves only the inputs;
+its backward recomputes the chain's plain version from them and takes that
+function's VJP with autograd, as ``_stack_bwd`` (:442-446) takes the VJP of
+the XLA reference outside any Pallas kernel. The backward is no kernel of
+the port: on the card it runs cuDNN convolutions. It is counted as
+``vgg_stack_bwd`` there.
+
 Layouts are time-major, as in the JAX package: x [B, T, F] (C_in = 1) or
 [B, T, F, C_in]; weights flax HWIO [3(f), 3(t), C_in, C] with H = freq and
 W = time; out [B, T//2, F//2, C] in ``out_dtype``. Any T and F: odd extents
@@ -29,6 +38,7 @@ are floored by the pool.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -195,12 +205,62 @@ def vgg_block2(x, w1, b1, w2, b2, out_dtype=torch.bfloat16):
     return out
 
 
+def vgg_stack_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the two-block stack (``vgg_block_plain`` twice):
+    [B, T, F] -> [B, T//4, (F//4) * C2], flattened (f, c) f-major."""
+    y = vgg_block_plain(x, *weights[:4], out_dtype=out_dtype)
+    y = vgg_block_plain(y, *weights[4:], out_dtype=out_dtype)
+    b, t4, f4, c2 = y.shape
+    return y.reshape(b, t4, f4 * c2)
+
+
+@contextlib.contextmanager
+def _cudnn_f32():
+    """cuDNN convolutions in f32 (TF32 off) whatever the global setting,
+    so that the backward is the VJP of the plain version as written."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+class _VGGStack(torch.autograd.Function):
+    """Forward: the fused kernels (the plain version on CPU tensors), saving
+    the inputs only. Backward: the VJP of the route's plain version (f32
+    convs for the f32 route, the bf16-operand form for the bf16 route),
+    recomputed from them, its convolutions in f32."""
+
+    @staticmethod
+    def forward(ctx, x, out_dtype, *weights):
+        ctx.out_dtype = out_dtype
+        ctx.save_for_backward(x, *weights)
+        y = vgg_block1(x, *weights[:4], out_dtype=out_dtype)
+        y = vgg_block2(y, *weights[4:], out_dtype=out_dtype)
+        b, t4, f4, c2 = y.shape
+        return y.reshape(b, t4, f4 * c2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[2:])
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        with torch.enable_grad(), _cudnn_f32():
+            y = vgg_stack_plain(inputs[0], inputs[1:], ctx.out_dtype)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        if g.device.type == "cuda":
+            native.launch_counts["vgg_stack_bwd"] += 1
+        dx, *dw = [next(grads) if t.requires_grad else None for t in inputs]
+        return (dx, None, *dw)
+
+
 def vgg_stack(x: torch.Tensor, weights: Sequence[torch.Tensor],
               out_dtype=torch.bfloat16) -> torch.Tensor:
     """Two-block VGG subsampler: [B, T, F] f32 -> [B, T//4, (F//4) * C2],
     flattened (f, c) f-major like mtl_tpu's FeatureExtractor.
-    ``weights`` = (w1a, b1a, w2a, b2a, w1b, b1b, w2b, b2b)."""
-    y = vgg_block1(x, *weights[:4], out_dtype=out_dtype)
-    y = vgg_block2(y, *weights[4:], out_dtype=out_dtype)
-    b, t4, f4, c2 = y.shape
-    return y.reshape(b, t4, f4 * c2)
+    ``weights`` = (w1a, b1a, w2a, b2a, w1b, b1b, w2b, b2b); differentiable
+    in x and the weights (backward by recompute, see ``_VGGStack``)."""
+    return _VGGStack.apply(x, out_dtype, *weights)

@@ -1,9 +1,14 @@
-"""Checkpoint save / load for the port: ``torch.save`` of the state_dict
-plus the ``meta.json`` sidecar of mtl_tpu/utils/checkpoint.py (config,
-vocab, step, metrics), so the model is rebuilt from the stored config
-(reference load_meta_model, utils/functions.py:158-188).
+"""Checkpoint save / load for the port: ``torch.save`` of the f32
+state_dict plus the ``meta.json`` sidecar of mtl_tpu/utils/checkpoint.py
+(config, vocab, step, metrics), so the model is rebuilt from the stored
+config (reference load_meta_model, utils/functions.py:158-188). A training
+checkpoint also holds what a resume needs beside the weights, as the JAX
+package's ``TrainState`` does (mtl_tpu/utils/checkpoint.py:47-74): the step
+and the outer Adam state.
 
-Layout: ``<save_folder>/<name>/{step_N,best_model}/{model.pt,meta.json}``.
+Layout: ``<save_folder>/<name>/{step_N,best_model}/`` holding
+``model.pt`` (the state_dict, which ``test_main`` loads), ``meta.json`` and,
+from training, ``train_state.pt`` ({step, count, mu, nu}).
 """
 
 from __future__ import annotations
@@ -18,17 +23,28 @@ from ..config import Config
 from ..data.vocab import Vocab
 
 MODEL_FILE = "model.pt"
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in tensors.items()}
 
 
 def save_checkpoint(cfg: Config, vocab: Vocab,
                     state_dict: Dict[str, torch.Tensor], step: int,
                     metrics: Optional[dict] = None,
-                    best_model: bool = False) -> str:
+                    best_model: bool = False, opt_state=None) -> str:
+    """Writes the step directory (or ``best_model``); ``opt_state`` (an
+    ``AdamState``) makes it a training checkpoint that a resume continues
+    from."""
     tag = "best_model" if best_model else f"step_{step}"
     path = os.path.abspath(os.path.join(cfg.save_folder, cfg.name, tag))
     os.makedirs(path, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
-               os.path.join(path, MODEL_FILE))
+    torch.save(_cpu(state_dict), os.path.join(path, MODEL_FILE))
+    if opt_state is not None:
+        torch.save({"step": int(step), "count": int(opt_state.count),
+                    "mu": _cpu(opt_state.mu), "nu": _cpu(opt_state.nu)},
+                   os.path.join(path, TRAIN_STATE_FILE))
     meta = {
         "config": json.loads(cfg.to_json()),
         "vocab": vocab.to_dict(),
@@ -54,3 +70,12 @@ def load_checkpoint(path: str) -> Tuple[Config, Vocab, dict, int, dict]:
     state_dict = torch.load(os.path.join(path, MODEL_FILE),
                             map_location="cpu", weights_only=True)
     return cfg, vocab, state_dict, step, metrics
+
+
+def load_train_state(path: str) -> Optional[dict]:
+    """{step, count, mu, nu} of a training checkpoint, on the CPU; None
+    for a weights-only checkpoint."""
+    file = os.path.join(path, TRAIN_STATE_FILE)
+    if not os.path.exists(file):
+        return None
+    return torch.load(file, map_location="cpu", weights_only=True)

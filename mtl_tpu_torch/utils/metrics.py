@@ -13,7 +13,7 @@ A copy of mtl_tpu/utils/metrics.py for the PyTorch port.
 from __future__ import annotations
 
 import unicodedata
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 from .edit_distance import distance
 
@@ -53,6 +53,11 @@ def get_word_segments_per_language(seq: str) -> List[str]:
 def calculate_cer(s1: str, s2: str) -> int:
     """Edit distance between hyp s1 and gold s2 (raw, unnormalized)."""
     return distance(s1, s2)
+
+
+def calculate_cer_batch(pairs: Sequence[Tuple[str, str]]) -> List[int]:
+    """Edit distances of (hyp, gold) string pairs."""
+    return [distance(a, b) for a, b in pairs]
 
 
 def calculate_wer(s1: str, s2: str) -> int:

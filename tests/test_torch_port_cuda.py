@@ -9,7 +9,9 @@ Shapes cover ragged time and freq tiles (odd T and F, T not a multiple of
 16), both channel configurations (vgg_cnn 64/128, large_cnn 32/64), the
 flagship shapes, both routes of the STFT, which n_fft chooses (every FFT
 radix, an odd FFT half, T = 1, a waveform short of its last frame), and
-both routes of the VGG blocks, which ``out_dtype`` chooses. Tolerances:
+both routes of the VGG blocks, which ``out_dtype`` chooses, the VGG
+stack's autograd Function on both routes, and one flagship-width meta step
+with its launch counts. Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
 the f32 plain version only in summation order (rtol/atol 1e-4). The bf16
@@ -209,4 +211,111 @@ def test_vgg_tc_library_refused_raises(dev, monkeypatch):
         before = dict(native.launch_counts)
         with pytest.raises(RuntimeError, match="vgg_tc refused"):
             fn(x, *ws, out_dtype=torch.bfloat16)
+        assert native.launch_counts == before
+
+
+# -- the VGG stack's autograd Function and the meta step ------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vgg_stack_grads_match_plain_autograd(dev, dtype):
+    """The Function (kernels forward, recomputed plain VJP backward)
+    against autograd through the route's plain version on the card (TF32
+    off, as the Function's backward runs it) on a short batch: the same
+    computation up to the order of cuDNN's sums (its weight-gradient
+    algorithms are not deterministic). f32: rtol 1e-3 and 1e-3 of the
+    largest entry. bf16: the bf16-operand form rounds the gradient that
+    reaches each conv to bf16, and a value on a rounding boundary may round
+    either way, moving a weight gradient by one bf16 ulp of one of its
+    terms; rtol 2^-7 and 2^-6 of the largest entry."""
+    from mtl_tpu_torch.ops.vgg import vgg_stack, vgg_stack_plain
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(2, 64, 161).astype(np.float32)).to(dev)
+    ws = [torch.from_numpy((rng.randn(*s) * sc).astype(np.float32)).to(dev)
+          for s, sc in (((3, 3, 1, 64), 0.3), ((64,), 0.1),
+                        ((3, 3, 64, 64), 0.04), ((64,), 0.1),
+                        ((3, 3, 64, 128), 0.04), ((128,), 0.1),
+                        ((3, 3, 128, 128), 0.03), ((128,), 0.1))]
+    g = torch.from_numpy(rng.randn(2, 16, 40 * 128).astype(np.float32)).to(
+        dev).to(dtype)
+    w1 = [w.clone().requires_grad_(True) for w in ws]
+    before = native.launch_counts["vgg_stack_bwd"]
+    got = torch.autograd.grad(vgg_stack(x, w1, out_dtype=dtype), w1, g)
+    torch.cuda.synchronize()
+    assert native.launch_counts["vgg_stack_bwd"] == before + 1
+    w2 = [w.clone().requires_grad_(True) for w in ws]
+    want = torch.autograd.grad(vgg_stack_plain(x, w2, dtype), w2, g)
+    rtol, scale = ((1e-3, 1e-3) if dtype == torch.float32
+                   else (2.0 ** -7, 2.0 ** -6))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=rtol,
+                                   atol=scale * float(b.abs().max()))
+
+
+def test_flagship_meta_step_launches_the_kernels(dev, tmp_path):
+    """One bf16 meta step at the flagship width (3 tasks of 8 + 8
+    utterances, 800 frames): every support and query forward runs both
+    tensor-core VGG kernels and the FFT STFT, every backward the stack's
+    recompute; the loss is finite and the weights move."""
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.train.optim import Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    manifests, labels = make_synthetic_corpus(
+        str(tmp_path), num_tasks=3, utts_per_task=8, min_sec=4.0,
+        max_sec=7.9, seed=1)
+    vocab = Vocab.from_json(labels)
+    cfg = Config()
+    m = cfg.model
+    m.num_enc_layers, m.num_dec_layers, m.num_heads = 2, 4, 8
+    m.dim_inner, m.dropout = 512, 0.1
+    cfg.data.src_bucket_frames = (800,)
+    cfg.finalize()
+    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=0)
+    support, query = ds.sample_meta_batch(8, 8)
+    assert support["audio"].shape[:2] == (3, 8)
+    model = build_model(cfg, len(vocab), dev)
+    init_weights(model, torch.Generator().manual_seed(0))
+    opt = Adam(1e-4)
+    state = init_train_state(model, opt)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    native.reset_launch_counts()
+    state, metrics = make_meta_step(model, cfg, opt)(
+        state, batch_to_device(support, dev), batch_to_device(query, dev),
+        torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    c = native.launch_counts
+    assert c["vgg_block1"] == c["vgg_block2"] == c["vgg_stack_bwd"] == 6, c
+    assert c["stft_logmag"] == 4 and c["stft_logmag_direct"] == 0, c
+    assert c["vgg_block1_f32"] == c["vgg_block2_f32"] == 0, c
+    assert torch.isfinite(metrics["outer_loss"])
+    moved = sum(int((state.params[k] != v).sum()) for k, v in before.items())
+    assert moved > 0.5 * sum(v.numel() for v in before.values())
+
+
+def test_vgg_stack_forward_raises_instead_of_falling_back(dev, monkeypatch):
+    """A kernel that cannot be had makes the stack's forward (and so the
+    model's) raise; nothing runs the plain version in its place."""
+    from mtl_tpu_torch.ops.vgg import vgg_stack
+
+    real = native.library
+
+    def refuse(name):
+        if name in ("vgg_tc", "vgg"):
+            raise RuntimeError(f"{name} refused")
+        return real(name)
+
+    monkeypatch.setattr(native, "library", refuse)
+    x, ws1 = _vgg_inputs(dev, (1, 16, 13), 1, 64, torch.float32, 6)
+    _, ws2 = _vgg_inputs(dev, (1, 8, 6, 64), 64, 128, torch.float32, 7)
+    ws = [w.requires_grad_(True) for w in ws1 + ws2]
+    for dtype in (torch.bfloat16, torch.float32):
+        before = dict(native.launch_counts)
+        with pytest.raises(RuntimeError, match="refused"):
+            vgg_stack(x, ws, out_dtype=dtype)
         assert native.launch_counts == before

@@ -59,6 +59,28 @@ def test_test_main_raises_without_cuda(monkeypatch):
         asr.test_main(["--continue-from", "unused"])
 
 
+def test_meta_transfer_train_main_raises_without_cuda(monkeypatch):
+    """The training entry point asks for cuda too, and raises without it."""
+    from mtl_tpu_torch.cli import asr
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asr.meta_transfer_train_main(["--train-manifest-list", "unused"])
+
+
+def test_vgg_stack_refuses_other_devices():
+    """The stack's autograd Function launches or refuses like the blocks;
+    it never runs the plain version on a non-CPU tensor."""
+    from mtl_tpu_torch.ops.vgg import vgg_stack
+
+    meta = torch.device("meta")
+    w = [torch.empty(s, device=meta) for s in (
+        (3, 3, 1, 64), (64,), (3, 3, 64, 64), (64,), (3, 3, 64, 128), (128,),
+        (3, 3, 128, 128), (128,))]
+    with pytest.raises(ValueError):
+        vgg_stack(torch.empty(1, 16, 9, device=meta), w)
+
+
 def test_wrappers_refuse_other_devices():
     from mtl_tpu_torch.ops.stft import stft_logmag
     from mtl_tpu_torch.ops.vgg import vgg_block1, vgg_block2
