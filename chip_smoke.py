@@ -30,7 +30,24 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    versions) must give the same features, encoder output and decode-step
    logits; the counters are zeroed before the card's run and read after
    it, and both f32 VGG kernels must have launched;
-8. trains the flagship width through the port's
+8. serves the same checkpoint and corpus by beam search with LM shallow
+   fusion, README's command (``--beam-search --beam-width 8 --beam-nbest
+   5 --lm-rescoring --lm-path``; horizon 200 steps at 800 frames): first
+   an LM at ``lm_parser``'s defaults (LSTM 200/200, 2 layers, untied,
+   seeded) over a synthetic word corpus is saved, tested on ``cuda`` by
+   the LM's ``test_main`` (its perplexity/transition JSON printed) and
+   converted by ``convert_main``; then ``test_main`` serves on ``cuda``
+   with the counters zeroed before and read after: the FFT STFT once a
+   batch, both bf16 VGG kernels once a batch (and again for a batch that
+   switches to greedy, which fewer than all batches may do), the direct
+   STFT never. Prints utterances/s, the real-time factor, the batches
+   switched to greedy, the TOTAL line and peak memory; then one batch
+   taken apart (ms per beam step, the LM scoring's ms and sequences) and
+   profiled (busy share, top device ops); then the beam at f32 on the
+   card against the CPU (B 2, W 3, 10 steps: equal bank tokens, lengths
+   and word counts, raw scores within 1e-4; the LM's scores of the
+   bank's hypotheses within 1e-5, on the card with TF32 allowed);
+9. trains the flagship width through the port's
    ``meta_transfer_train_main`` on ``cuda`` (bf16, dropout 0.1) on a
    3-task corpus of 4-7.9 s utterances (one 800-frame bucket; the last
    task is the code-switched query and valid set), 3 tasks of 8 support
@@ -43,12 +60,12 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    run, the direct STFT never. Then one meta step is timed on device-side
    batches (median over the steps after the first), with the peak memory,
    and one step is profiled: its busy share and device time by kernel;
-9. checks one meta step at f32 on the card (kernels, f32 routes) against
+10. checks one meta step at f32 on the card (kernels, f32 routes) against
    the same step on the CPU (plain versions) from the same weights and
    batch (2 tasks of 2 utterances, 400 frames): outer loss, outer
    gradients and the params after the Adam update; the f32 VGG kernels and
    the stack's backward must have launched;
-10. prints the kernels as one JSON line and, last, the result line.
+11. prints the kernels as one JSON line and, last, the result line.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -430,6 +447,242 @@ def check_against_plain(torch, dev, ckpt, corpus_dir):
     return counts
 
 
+BEAM_W, BEAM_NBEST = 8, 5  # README.md's beam command
+
+
+def build_lm(torch, dev, work):
+    """An LM at lm_parser's defaults (LSTM, emsize 200, nhid 200, 2
+    layers, untied), seeded, over the code-switched task of a synthetic
+    word corpus; saved as a port LM checkpoint, tested on the card with the
+    LM's test_main (its JSON line printed) and converted into a fusion
+    directory with convert_main. Returns the fusion directory."""
+    from mtl_tpu_torch.cli.lm import (build_lm, convert_main, lm_parser,
+                                      save_lm_ckpt)
+    from mtl_tpu_torch.cli.lm import test_main as lm_test_main
+    from mtl_tpu_torch.data.synthetic import make_synthetic_lm_corpus
+    from mtl_tpu_torch.lm.data import Corpus
+    from mtl_tpu_torch.lm.model import init_lm_weights
+
+    root = os.path.join(work, "lm")
+    task = make_synthetic_lm_corpus(os.path.join(root, "corpus"),
+                                    num_tasks=3, sentences_per_task=400,
+                                    seed=SEED)[-1]
+    train, test = (os.path.join(task, f"{s}.txt") for s in ("train", "test"))
+    corpus = Corpus(train)
+    with open(test, encoding="utf-8") as f:
+        unseen = (set(f.read().lower().split())
+                  - set(corpus.dictionary.word2idx))
+    check(not unseen, f"LM test words outside the train dictionary: {unseen}")
+    args = lm_parser("").parse_args([])
+    lm = build_lm(args, len(corpus.dictionary))
+    init_lm_weights(lm, torch.Generator().manual_seed(SEED))
+    ckpt = os.path.join(root, "ckpt")
+    save_lm_ckpt(ckpt, lm, corpus.dictionary, args, len(corpus.dictionary))
+    buf = io.StringIO()
+    with contextlib.chdir(work), contextlib.redirect_stdout(buf):
+        res = lm_test_main(["--load", ckpt, "--test_path", test,
+                            "--name", "chip_smoke", "--device", dev.type])
+        fusion = convert_main(["--load", ckpt, "--save",
+                               os.path.join(root, "fusion"), "--device",
+                               dev.type])
+    line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(len(line) == 1 and math.isfinite(res["ppl"]),
+          f"LM test_main: {buf.getvalue()[-500:]}")
+    print(f"LM ({args.model}, emsize {args.emsize}, nhid {args.nhid}, "
+          f"{args.nlayers} layers, {len(corpus.dictionary)} words, "
+          f"seeded) test_main on {dev.type}: {line[0]}", flush=True)
+    return fusion
+
+
+def serve_beam(torch, dev, ckpt, manifest, labels_path, fusion):
+    """The beam phase: test_main --beam-search --beam-width 8
+    --beam-nbest 5 --lm-rescoring on cuda (README's command) with the
+    launch counters zeroed before and read after. Returns (result, stdout,
+    wall seconds, launch counts, peak MiB)."""
+    from mtl_tpu_torch.cli.asr import test_main
+    from mtl_tpu_torch.ops import native
+
+    argv = ["--test-manifest-list", manifest, "--labels-path", labels_path,
+            "--continue-from", ckpt, "--name", "chip_smoke_beam",
+            "--device", dev.type, "--k-valid", "8", "--k-test", "8",
+            "--beam-search", "--beam-width", str(BEAM_W), "--beam-nbest",
+            str(BEAM_NBEST), "--lm-rescoring", "--lm-path", fusion]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = test_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(native.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    return result, buf.getvalue(), wall, counts, peak
+
+
+def beam_batch(torch, dev, ckpt, manifest, fusion):
+    """One served beam batch (B 8, 800 frames) taken apart: the decode
+    loop timed and its steps counted, the LM scoring of its bank timed,
+    then the whole batch under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mtl_tpu_torch.cli.common import load_asr_model
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.decode.beam import (NEG_INF, beam_decode_ids,
+                                           beam_search_grouped)
+    from mtl_tpu_torch.lm.fusion import LMScorer
+    from mtl_tpu_torch.models.subsampler import subsampled_length
+    from mtl_tpu_torch.train.steps import prepare_features
+    from mtl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg, vocab, sd, _, _ = load_checkpoint(ckpt)
+    model = load_asr_model(cfg, vocab, sd, dev)
+    lm = LMScorer.load(fusion, dev)
+    ds = SpectrogramDataset(vocab, cfg, [manifest], normalize=True)
+    batch, _ = next(ds.iter_batches(8, shuffle=False, with_valid_count=True))
+    steps = [0]
+    step_fn = model.decode_step
+
+    def counted(*a):
+        steps[0] += 1
+        return step_fn(*a)
+
+    model.decode_step = counted
+    n_bank = max(BEAM_NBEST, BEAM_W) * 4
+    with torch.inference_mode():
+        feats, lengths = prepare_features(
+            {k: torch.from_numpy(batch[k]).to(dev)
+             for k in ("audio", "audio_lengths")}, cfg)
+        horizon = min(cfg.decode.max_steps, subsampled_length(
+            cfg.model.feat_extractor, feats.shape[1]))
+        kw = dict(beam_width=BEAM_W, nbest=BEAM_NBEST, max_steps=horizon,
+                  start_token=vocab.SOS_ID, c_weight=0.1, lm=lm,
+                  lm_rescoring=True, lm_weight=0.1)
+        beam_search_grouped(model, feats, lengths, vocab, **kw)  # warm
+        torch.cuda.synchronize()
+        steps[0] = 0
+        t0 = time.perf_counter()
+        toks, scores, _, lens = beam_decode_ids(
+            model, feats, lengths, BEAM_W, horizon, vocab.SOS_ID, n_bank,
+            vocab.label2id.get(" ", -1), 0.1)
+        toks, scores, lens = toks.cpu(), scores.cpu(), lens.cpu()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        id_lists = [[vocab.SOS_ID] + toks[x, j, :lens[x, j]].tolist()
+                    for x in range(toks.shape[0]) for j in range(n_bank)
+                    if scores[x, j] > NEG_INF / 2]
+        t0 = time.perf_counter()
+        lm.score_batch(id_lists, vocab)
+        lm_ms = (time.perf_counter() - t0) * 1e3
+        print(f"beam batch (B 8, W {BEAM_W}, bank {n_bank}, horizon "
+              f"{horizon}): decode loop {steps[0]} steps in {dec_ms:.3f} "
+              f"ms, {dec_ms / max(steps[0], 1):.3f} ms per beam step (host "
+              f"clock, synchronized, encoder and cross K/V included); LM "
+              f"scoring of {len(id_lists)} sequences in one call "
+              f"{lm_ms:.3f} ms", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            beam_search_grouped(model, feats, lengths, vocab, **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = _busy_ms(events, torch)
+    by_name = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in events)
+    launches = sum("LaunchKernel" in e.name for e in events)
+    print(f"profiled beam batch: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}; {kernels} "
+          f"device ops ({kernels / max(steps[0], 1):.1f} a beam step), "
+          f"{launches} kernel-launch API calls", flush=True)
+    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:10]:
+        print(f"  top device op {t:9.3f} ms  {name[:110]}", flush=True)
+    return dec_ms / max(steps[0], 1)
+
+
+def beam_parity(torch, dev, ckpt, manifest, fusion):
+    """The beam at f32 on the card (kernels, f32 routes) against the CPU
+    (plain versions): same weights, B 2 cut to 400 frames, W 3, 10 steps,
+    the fusion LM. Bank tokens, lengths and word counts equal, raw scores
+    within 1e-4; the LM's scores of the bank's hypotheses within 1e-5,
+    on the card in one call with TF32 allowed globally (the LM holds
+    itself to f32), on the CPU one sequence at a time. Returns the card
+    run's launch counts."""
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.decode.beam import NEG_INF, beam_decode_ids
+    from mtl_tpu_torch.lm.fusion import LMScorer
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.train.steps import prepare_features
+    from mtl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg, vocab, sd, _, _ = load_checkpoint(ckpt)
+    cfg.model.dtype = "float32"
+    ds = SpectrogramDataset(vocab, cfg, [manifest])
+    batch = next(ds.iter_batches(2, shuffle=False, force_frames=400))
+    banks = []  # [card, cpu]
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    with torch.inference_mode():
+        for d in (dev, torch.device("cpu")):
+            model = build_model(cfg, len(vocab))
+            model.load_state_dict({k: v.float() for k, v in sd.items()})
+            model = model.to(d).eval()
+            feats, lengths = prepare_features(
+                {k: torch.from_numpy(batch[k]).to(d)
+                 for k in ("audio", "audio_lengths")}, cfg)
+            banks.append([x.cpu() for x in beam_decode_ids(
+                model, feats, lengths, 3, 10, vocab.SOS_ID, 0,
+                vocab.label2id.get(" ", -1), 0.1)])
+            if d == dev:
+                torch.cuda.synchronize()
+                counts = dict(native.launch_counts)
+    (ct, cs, cw, cl), (pt, ps, pw, pl) = banks
+    real = ps > NEG_INF / 2
+    if not (torch.equal(ct, pt) and torch.equal(cl, pl)
+            and torch.equal(cw, pw)):
+        for x in range(ct.shape[0]):
+            for j in range(ct.shape[1]):
+                print(f"beam parity mismatch row {x} slot {j}: card "
+                      f"{ct[x, j, :cl[x, j]].tolist()} raw {float(cs[x, j])}"
+                      f"; cpu {pt[x, j, :pl[x, j]].tolist()} raw "
+                      f"{float(ps[x, j])}", flush=True)
+        raise RuntimeError("chip_smoke check failed: beam banks differ "
+                           "between the card and the CPU")
+    check(torch.equal(cs > NEG_INF / 2, real), "bank slots differ")
+    err = float((cs[real] - ps[real]).abs().max())
+    torch.testing.assert_close(cs[real], ps[real], rtol=1e-4, atol=1e-4)
+    id_lists = [[vocab.SOS_ID] + pt[x, j, :pl[x, j]].tolist()
+                for x in range(pt.shape[0]) for j in range(pt.shape[1])
+                if real[x, j]]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = LMScorer.load(fusion, dev).score_batch(id_lists, vocab)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    cpu_lm = LMScorer.load(fusion, torch.device("cpu"))
+    lm_err = 0.0
+    for ids, got in zip(id_lists, card):
+        want = cpu_lm.score_ids(ids, vocab)
+        check(got[1:] == want[1:], f"LM word/OOV counts {got} vs {want}")
+        lm_err = max(lm_err, abs(got[0] - want[0]))
+    check(lm_err <= 1e-5, f"LM scores differ by {lm_err}")
+    print(f"beam parity (f32, B 2, 400 frames, W 3, 10 steps): "
+          f"{int(real.sum())} bank hypotheses, tokens/lengths/words equal, "
+          f"raw max_abs_err {err:.3e}; LM score_ids of them card (one "
+          f"call, TF32 allowed) vs cpu max_abs_err {lm_err:.3e}",
+          flush=True)
+    return counts
+
+
 TRAIN_FLAGS = [  # the flagship width (the CLI's defaults differ)
     "--feat_extractor", "vgg_cnn", "--num-enc-layers", "2",
     "--num-dec-layers", "4", "--num-heads", "8", "--dim-model", "512",
@@ -786,7 +1039,52 @@ def main():
     parity = check_against_plain(torch, dev, ckpt, corpus_dir)
     print(f"launches in the f32 parity run: {parity}", flush=True)
 
-    # 8. train the flagship width through the CLI; 9. f32 train parity
+    # 8. beam serving with LM fusion at the flagship width
+    t0 = time.perf_counter()
+    manifest = os.path.join(corpus_dir, "manifest_task0.csv")
+    labels_path = os.path.join(corpus_dir, "labels.json")
+    fusion = build_lm(torch, dev, WORK)
+    result_b, out_b, wall_b, beam_counts, peak_b = serve_beam(
+        torch, dev, ckpt, manifest, labels_path, fusion)
+    with open(os.path.join(WORK, "beam_main.txt"), "w",
+              encoding="utf-8") as f:
+        f.write(out_b)
+    total = [ln for ln in out_b.splitlines() if ln.startswith("TOTAL CER")]
+    preds = [ln for ln in out_b.splitlines() if ln.startswith("PRED:")]
+    nbest = [ln for ln in out_b.splitlines() if ln.startswith("NBEST")]
+    switched = result_b["switched_to_greedy"]
+    check(len(total) == 1 and len(preds) == UTTERANCES
+          and result_b["utterances"] == UTTERANCES
+          and all(math.isfinite(result_b[k])
+                  for k in ("cer", "wer", "en_cer", "zh_cer")),
+          f"beam run: {len(preds)} PRED lines, {len(total)} TOTAL lines")
+    print(total[0], flush=True)
+    print(f"beam served {UTTERANCES} utterances ({audio_s:.3f} s of audio; "
+          f"W {BEAM_W}, n-best {BEAM_NBEST}, LM fusion) in {wall_b:.3f} s: "
+          f"{UTTERANCES / wall_b:.3f} utterances/s, real-time factor "
+          f"{wall_b / audio_s:.4f}; {switched} of {batches} batches switched "
+          f"to greedy; {len(nbest)} NBEST lines; peak memory "
+          f"{peak_b:.1f} MiB", flush=True)
+    print(f"launches in the beam run: {beam_counts}", flush=True)
+    check(switched < batches and len(nbest) >= BEAM_NBEST,
+          f"{switched} of {batches} batches switched to greedy, "
+          f"{len(nbest)} NBEST lines")
+    check(beam_counts["stft_logmag"] == batches
+          and beam_counts["stft_logmag_direct"] == 0
+          and beam_counts["vgg_block1"] == beam_counts["vgg_block2"]
+          == batches + switched,
+          f"the beam run must launch the FFT STFT once a batch ({batches}),"
+          f" each bf16 VGG kernel once a batch and again for each batch "
+          f"that switched to greedy ({switched}), the direct STFT never: "
+          f"{beam_counts}")
+    beam_batch(torch, dev, ckpt, manifest, fusion)
+    beam_par = beam_parity(torch, dev, ckpt, manifest, fusion)
+    print(f"launches in the f32 beam parity run: {beam_par}", flush=True)
+    check(beam_par["vgg_block1_f32"] == beam_par["vgg_block2_f32"] == 1
+          and beam_par["stft_logmag"] == 1, f"beam parity: {beam_par}")
+    print(f"beam phases {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9. train the flagship width through the CLI; 10. f32 train parity
     t0 = time.perf_counter()
     _, train_corpus = train(torch, dev, WORK)
     train_parity(torch, dev, train_corpus)
@@ -803,7 +1101,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 10. results
+    # 11. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -3,9 +3,9 @@
 * ``meta_transfer_train_main`` — meta_transfer_train.py: the first-order
   meta-transfer trainer (``TransientTrainer``), console script
   ``mtl-torch-meta-transfer-train``;
-* ``test_main`` — test.py: greedy decode of the test manifests from a port
-  checkpoint, CER/WER + EN/ZH CER report. Beam search and LM fusion are not
-  ported yet.
+* ``test_main`` — test.py: greedy or beam decode (``--beam-search``,
+  optionally with LM shallow fusion, ``--lm-rescoring --lm-path``) of the
+  test manifests from a port checkpoint, CER/WER + EN/ZH CER report.
 """
 
 from __future__ import annotations
@@ -17,7 +17,10 @@ import torch
 from ..config import build_parser, config_from_args
 from ..data.dataset import SpectrogramDataset
 from ..data.vocab import post_process
+from ..decode.beam import beam_search_grouped
 from ..decode.greedy import greedy_search
+from ..lm.fusion import LMScorer
+from ..models.subsampler import subsampled_length
 from ..models.transformer import build_model
 from ..train.steps import prepare_features
 from ..train.trainer import TransientTrainer
@@ -52,15 +55,14 @@ def meta_transfer_train_main(argv=None):
 
 
 def test_main(argv=None):
-    """test.py parity: load the checkpoint, greedy-decode the test
-    manifests, report CER/WER + EN/ZH CER. Returns the four totals and the
-    number of scored utterances."""
+    """test.py parity: load the checkpoint, decode the test manifests
+    greedily or by beam search (+ LM fusion), report CER/WER + EN/ZH CER.
+    Returns the four totals, the number of scored utterances and the
+    number of beam batches that switched to greedy."""
     parser = build_parser("Transformer ASR evaluation (PyTorch port)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device = resolve_device(cfg.device)
-    if cfg.decode.beam_search or cfg.decode.lm_rescoring:
-        raise ValueError("beam search and LM fusion are not ported yet")
     if cfg.mesh.model > 1:
         raise ValueError("--mesh-model is not ported yet")
     setup(cfg)
@@ -72,6 +74,8 @@ def test_main(argv=None):
     saved_cfg.decode = cfg.decode
     saved_cfg.data = cfg.data
     model = load_asr_model(saved_cfg, vocab, state_dict, device)
+    lm = (LMScorer.load(cfg.decode.lm_path, device)
+          if cfg.decode.lm_rescoring else None)
 
     test_sets = [
         SpectrogramDataset(vocab, saved_cfg, [m], normalize=True)
@@ -79,9 +83,10 @@ def test_main(argv=None):
     ]
     total_cer = total_wer = total_char = total_word = 0
     total_en_cer = total_zh_cer = total_en_char = total_zh_char = 0
-    num_utts = 0
+    num_utts = switched = 0
     start = time.time()
     k_test = getattr(args, "k_test", None) or cfg.train.k_valid
+    nbest = max(1, cfg.decode.beam_nbest)
     with torch.inference_mode():
         for ds in test_sets:
             for batch, num_valid in ds.iter_batches(k_test, shuffle=False,
@@ -89,8 +94,34 @@ def test_main(argv=None):
                 feats, lengths = prepare_features(
                     {k: torch.from_numpy(batch[k]).to(device)
                      for k in ("audio", "audio_lengths")}, saved_cfg)
-                hyps = greedy_search(model, feats, lengths, vocab,
-                                     cfg.decode.max_steps, vocab.SOS_ID)
+                nbest_lists = None
+                if cfg.decode.beam_search:
+                    # the reference's horizon: --tgt-max-len of the test
+                    # CLI (test.py:65), every survivor retired at the
+                    # encoder length (modules/decoder.py:215,253-255);
+                    # --max-steps caps the bank's memory
+                    enc_len = subsampled_length(
+                        saved_cfg.model.feat_extractor, feats.shape[1])
+                    horizon = min(cfg.model.tgt_max_len, max(enc_len, 1))
+                    nbest_lists = beam_search_grouped(
+                        model, feats, lengths, vocab,
+                        beam_width=cfg.decode.beam_width, nbest=nbest,
+                        max_steps=min(cfg.decode.max_steps, horizon),
+                        start_token=vocab.SOS_ID,
+                        c_weight=cfg.decode.c_weight, lm=lm,
+                        lm_rescoring=cfg.decode.lm_rescoring,
+                        lm_weight=cfg.decode.lm_weight)
+                    hyps = [g[0][2] if g else "" for g in nbest_lists]
+                    if len(hyps) == 0 or len(hyps[0].strip()) == 0:
+                        # the reference's fallback to greedy when the
+                        # first hypothesis is empty
+                        # (models/asr/transformer.py:190-197)
+                        log_print(">>>>>>> switch to greedy")
+                        switched += 1
+                        nbest_lists = None
+                if nbest_lists is None:
+                    hyps = greedy_search(model, feats, lengths, vocab,
+                                         cfg.decode.max_steps, vocab.SOS_ID)
                 golds = [
                     post_process(vocab.decode_ids(row),
                                  vocab.special_token_list)
@@ -100,7 +131,7 @@ def test_main(argv=None):
                 # padded with duplicate utterances to keep shapes static
                 hyps, golds = hyps[:num_valid], golds[:num_valid]
                 num_utts += num_valid
-                for hyp, gold in zip(hyps, golds):
+                for ind, (hyp, gold) in enumerate(zip(hyps, golds)):
                     hyp = post_process(hyp, vocab.special_token_list)
                     # reference-exact scoring (test.py:138-158): CER over
                     # the STRIPPED strings, total chars include spaces,
@@ -118,6 +149,13 @@ def test_main(argv=None):
                     total_zh_char += zh_n
                     log_print(f"PRED: {hyp}")
                     log_print(f"GOLD: {gold}")
+                    # n-best report (the reference appends every n-best,
+                    # modules/decoder.py:286-291)
+                    if nbest_lists is not None and nbest > 1:
+                        for rank, (score, _, s) in enumerate(
+                                nbest_lists[ind]):
+                            s = post_process(s, vocab.special_token_list)
+                            log_print(f"NBEST {rank + 1}: {score:.4f} {s}")
     log_print(
         "TOTAL CER: {:.2f}% WER: {:.2f}% EN CER: {:.2f}% ZH CER: {:.2f}% "
         "TIME: {:.2f}s".format(
@@ -134,4 +172,5 @@ def test_main(argv=None):
         "en_cer": total_en_cer * 100.0 / max(total_en_char, 1),
         "zh_cer": total_zh_cer * 100.0 / max(total_zh_char, 1),
         "utterances": num_utts,
+        "switched_to_greedy": switched,
     }

@@ -1,5 +1,6 @@
-"""Synthetic corpus generator for tests and chip runs (copy of
-make_synthetic_corpus from mtl_tpu/data/synthetic.py).
+"""Synthetic corpus generators for tests and chip runs (copies of
+make_synthetic_corpus and make_synthetic_lm_corpus from
+mtl_tpu/data/synthetic.py).
 
 Stands in for the LDC corpora (CommonVoice / HKUST / SEAME) the reference
 trains on: sine-mixture wavs + short transcripts, one manifest per
@@ -101,3 +102,55 @@ def make_synthetic_corpus(
     with open(labels_path, "w", encoding="utf-8") as f:
         json.dump(labels, f, ensure_ascii=False)
     return manifests, labels_path
+
+
+def make_synthetic_lm_corpus(
+    root: str, num_tasks: int = 3, sentences_per_task: int = 40,
+    seed: int = 0, markov: bool = False
+) -> List[str]:
+    """Word-level text corpora for the LM stack (train/valid/test files per
+    task, mirroring the lm/ data layout).
+
+    ``markov=True`` draws each sentence from a sparse per-task first-order
+    Markov chain (each word allows ~3 successors) instead of i.i.d. word
+    choices — i.i.d. text caps learning at unigram statistics, which makes
+    perplexity curves too shallow for time-to-target benchmarks
+    (bench_matched_ppl.py)."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    en_words = ["the", "cat", "sat", "on", "mat", "dog", "ran", "far", "you",
+                "go", "now", "later", "really", "okay"]
+    zh_words = [chr(0x4E00 + i) for i in range(25)]
+    paths = []
+    for k in range(num_tasks):
+        if k == num_tasks - 1:
+            pool = en_words + zh_words
+        elif k % 2 == 0:
+            pool = en_words
+        else:
+            pool = zh_words
+        successors = None
+        if markov:
+            successors = {
+                w: rng.choice(pool, size=3, replace=False) for w in pool
+            }
+        task_dir = os.path.join(root, f"lm_task{k}")
+        os.makedirs(task_dir, exist_ok=True)
+        for split, n in (("train", sentences_per_task),
+                         ("valid", max(4, sentences_per_task // 5)),
+                         ("test", max(4, sentences_per_task // 5))):
+            lines = []
+            for _ in range(n):
+                length = rng.randint(3, 10)
+                if markov:
+                    words = [str(rng.choice(pool))]
+                    for _ in range(length - 1):
+                        words.append(str(rng.choice(successors[words[-1]])))
+                else:
+                    words = [str(rng.choice(pool)) for _ in range(length)]
+                lines.append(" ".join(words))
+            with open(os.path.join(task_dir, f"{split}.txt"), "w",
+                      encoding="utf-8") as f:
+                f.write("\n".join(lines) + "\n")
+        paths.append(task_dir)
+    return paths

@@ -20,6 +20,22 @@ trees shaped like the params, so they map by the same rules onto the port's
 ``AdamState`` (keyed by parameter name), and ``count`` is the step count.
 A JAX ``TrainState`` (step, params, ``opt_state[0]`` of ``optax.adam``)
 can so continue in the port and back.
+
+The word-level LM (mtl_tpu/lm/model.py ``RNNLM``) maps by its own rules
+(``lm_params_to_torch`` / ``torch_to_flax_lm_params``): the flax cells keep
+one Dense per gate, kernels [in, out]; the port stacks them in torch's gate
+order into ``rnns.{i}.weight_ih`` [G*H, in] / ``weight_hh`` [G*H, H] and
+keeps the cells' single bias per gate in ``rnns.{i}.bias``:
+
+* LSTM (``OptimizedLSTMCell``): gates i, f, g, o from ``i*`` (input side,
+  no bias) and ``h*`` (hidden side, biased); ``bias`` = the ``h*`` biases;
+* GRU (``GRUCell``): gates r, z, n from ``ir``/``iz``/``in`` (biased) and
+  ``hr``/``hz``/``hn`` (only ``hn`` biased); ``bias`` = [ir, iz, in, hn];
+* RNN_TANH / RNN_RELU (``SimpleCell``): ``i`` (biased) and ``h``;
+  ``bias`` = the ``i`` bias;
+* ``embed/embedding`` -> ``embed.weight``; ``decoder`` Dense ->
+  ``decoder.weight`` [V, H] / ``decoder.bias``, or ``decoder_bias`` when
+  tied.
 """
 
 from __future__ import annotations
@@ -105,3 +121,61 @@ def adam_state_to_optax(state: AdamState):
     fields of optax's ``ScaleByAdamState`` in the Flax param layout."""
     return (torch_to_flax_params(state.mu), torch_to_flax_params(state.nu),
             np.asarray(state.count, np.int32))
+
+
+# flax cell -> (input-side Dense names, hidden-side Dense names, the Dense
+# names whose biases make the port's ``bias``, in order)
+_LM_CELLS = {
+    "LSTM": (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho"),
+             ("hi", "hf", "hg", "ho")),
+    "GRU": (("ir", "iz", "in"), ("hr", "hz", "hn"), ("ir", "iz", "in", "hn")),
+    "RNN_TANH": (("i",), ("h",), ("i",)),
+    "RNN_RELU": (("i",), ("h",), ("i",)),
+}
+
+
+def lm_params_to_torch(params, arch: dict) -> Dict[str, torch.Tensor]:
+    """Flax ``RNNLM`` params (``arch`` as in the LM checkpoints: rnn_type,
+    nlayers, tie_weights) -> the port's ``RNNLM`` state_dict (f32)."""
+    tree = params.get("params", params)
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32, order="C"))
+    ins, hids, biased = _LM_CELLS[arch["rnn_type"]]
+    sd = {"embed.weight": f32(tree["embed"]["embedding"])}
+    for i in range(arch["nlayers"]):
+        cell = tree[f"rnn_l{i}"]
+        sd[f"rnns.{i}.weight_ih"] = f32(np.concatenate(
+            [np.asarray(cell[g]["kernel"]).T for g in ins]))
+        sd[f"rnns.{i}.weight_hh"] = f32(np.concatenate(
+            [np.asarray(cell[g]["kernel"]).T for g in hids]))
+        sd[f"rnns.{i}.bias"] = f32(np.concatenate(
+            [np.asarray(cell[g]["bias"]) for g in biased]))
+    if arch["tie_weights"]:
+        sd["decoder_bias"] = f32(tree["decoder_bias"])
+    else:
+        sd["decoder.weight"] = f32(np.asarray(tree["decoder"]["kernel"]).T)
+        sd["decoder.bias"] = f32(tree["decoder"]["bias"])
+    return sd
+
+
+def torch_to_flax_lm_params(state_dict: Dict[str, torch.Tensor],
+                            arch: dict) -> dict:
+    """The port's ``RNNLM`` state_dict -> Flax ``{"params": ...}`` tree of
+    float32 numpy (the inverse of ``lm_params_to_torch``)."""
+    a = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    ins, hids, biased = _LM_CELLS[arch["rnn_type"]]
+    tree = {"embed": {"embedding": a["embed.weight"]}}
+    for i in range(arch["nlayers"]):
+        cell = {}
+        for names, w in ((ins, a[f"rnns.{i}.weight_ih"]),
+                         (hids, a[f"rnns.{i}.weight_hh"])):
+            for g, rows in zip(names, np.split(w, len(names))):
+                cell[g] = {"kernel": np.ascontiguousarray(rows.T)}
+        for g, b in zip(biased, np.split(a[f"rnns.{i}.bias"], len(biased))):
+            cell[g]["bias"] = np.ascontiguousarray(b)
+        tree[f"rnn_l{i}"] = cell
+    if arch["tie_weights"]:
+        tree["decoder_bias"] = a["decoder_bias"]
+    else:
+        tree["decoder"] = {"kernel": np.ascontiguousarray(
+            a["decoder.weight"].T), "bias": a["decoder.bias"]}
+    return {"params": tree}

@@ -32,6 +32,17 @@ from .layers import (FeedForward, MultiHeadAttention, PositionalEncoding,
 LayerKV = Tuple[torch.Tensor, torch.Tensor]
 
 
+def reorder_caches(caches: List[LayerKV], index: torch.Tensor
+                   ) -> List[LayerKV]:
+    """Rows ``index`` of every layer's self-attention K/V cache
+    ([B*W, T, H, D], gathered along dim 0), as new tensors: ``decode_step``
+    writes its caches in place, so a reordered cache must not alias the
+    one it came from (the beam's gather by source beam,
+    mtl_tpu/decode/beam.py:180-184)."""
+    return [(k.index_select(0, index), v.index_select(0, index))
+            for k, v in caches]
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, num_heads: int, dim_model: int, dim_inner: int,
                  dim_key: int, dim_value: int, dropout: float = 0.1,

@@ -22,6 +22,19 @@ from ..ops.vgg import vgg_stack
 CHANNELS = {"vgg_cnn": (64, 128), "large_cnn": (32, 64)}
 
 
+def subsampled_length(feat_extractor: str, length: int) -> int:
+    """Time-axis length after the conv front-end (floor semantics of torch
+    MaxPool2d / strided conv; mtl_tpu/models/subsampler.py:27): the
+    encoder length that bounds the beam's horizon."""
+    if feat_extractor in ("vgg_cnn", "large_cnn"):
+        return length // 2 // 2
+    if feat_extractor == "emb_cnn":
+        # W axis: conv1 stride 2 pad 10 k=11; conv2 stride 1 k=11 no pad
+        l1 = (length + 20 - 11) // 2 + 1
+        return l1 - 11 + 1
+    return length
+
+
 class ConvParams(nn.Module):
     """One conv's ``kernel`` (flax HWIO [3(f), 3(t), C_in, C], f32) and
     ``bias`` — the layout the VGG kernels take."""

@@ -38,12 +38,12 @@ are floored by the pool.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import strict_f32
 from . import native
 
 # (C_in, C) pairs the kernels are built for: vgg_cnn and large_cnn
@@ -215,18 +215,6 @@ def vgg_stack_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return y.reshape(b, t4, f4 * c2)
 
 
-@contextlib.contextmanager
-def _cudnn_f32():
-    """cuDNN convolutions in f32 (TF32 off) whatever the global setting,
-    so that the backward is the VJP of the plain version as written."""
-    old = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = old
-
-
 class _VGGStack(torch.autograd.Function):
     """Forward: the fused kernels (the plain version on CPU tensors), saving
     the inputs only. Backward: the VJP of the route's plain version (f32
@@ -247,7 +235,7 @@ class _VGGStack(torch.autograd.Function):
         saved = ctx.saved_tensors
         need = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[2:])
         inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
-        with torch.enable_grad(), _cudnn_f32():
+        with torch.enable_grad(), strict_f32():
             y = vgg_stack_plain(inputs[0], inputs[1:], ctx.out_dtype)
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(y, wanted, g))

@@ -10,8 +10,10 @@ Shapes cover ragged time and freq tiles (odd T and F, T not a multiple of
 flagship shapes, both routes of the STFT, which n_fft chooses (every FFT
 radix, an odd FFT half, T = 1, a waveform short of its last frame), and
 both routes of the VGG blocks, which ``out_dtype`` chooses, the VGG
-stack's autograd Function on both routes, and one flagship-width meta step
-with its launch counts. Tolerances:
+stack's autograd Function on both routes, one flagship-width meta step
+with its launch counts, the beam's bank and the LM scorer (TF32 allowed
+globally) against the CPU, and the beam ``test_main``'s launches.
+Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
 the f32 plain version only in summation order (rtol/atol 1e-4). The bf16
@@ -19,7 +21,9 @@ tensor-core route and the bf16-operand plain version sum in f32 in other
 orders, so a conv-1 value or an output near a bf16 rounding boundary may
 round to its neighbour: one bf16 ulp of the output, |d| <= 2^-7 |plain| +
 2^-10 (the absolute term for outputs near zero, where a neighbouring conv-1
-value moves the sum by about 1e-4).
+value moves the sum by about 1e-4). The beam at f32: equal bank tokens,
+lengths and word counts, raw scores (sums of f32 log-probabilities,
+summation order only) within 1e-4; LM scores within 1e-5.
 """
 
 import numpy as np
@@ -319,3 +323,124 @@ def test_vgg_stack_forward_raises_instead_of_falling_back(dev, monkeypatch):
         with pytest.raises(RuntimeError, match="refused"):
             vgg_stack(x, ws, out_dtype=dtype)
         assert native.launch_counts == before
+
+
+def _tiny_asr(vocab_size, dtype):
+    """(config, seeded model) of a small vgg_cnn Transformer."""
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+
+    cfg = Config()
+    m = cfg.model
+    m.num_enc_layers, m.num_dec_layers, m.num_heads = 1, 2, 4
+    m.dim_model = m.dim_emb = m.dim_inner = 64
+    m.dim_key = m.dim_value = m.r = 16
+    m.dropout, m.dtype = 0.0, dtype
+    m.src_max_len, m.tgt_max_len = 400, 200
+    cfg.finalize()
+    model = build_model(cfg, vocab_size)
+    init_weights(model, torch.Generator().manual_seed(3))
+    return cfg, model.eval()
+
+
+def test_beam_bank_on_the_card_matches_the_cpu(dev):
+    """The beam's bank at f32 (B 2, W 3, 10 steps): the card (FFT STFT
+    not involved; the f32 VGG kernels) and the CPU (plain versions) keep
+    the same hypotheses; raw scores within 1e-4."""
+    from mtl_tpu_torch.decode.beam import NEG_INF, beam_decode_ids
+
+    _, model = _tiny_asr(71, "float32")
+    rng = np.random.RandomState(8)
+    feats = torch.from_numpy(rng.randn(2, 96, 161).astype(np.float32))
+    lengths = torch.tensor([96, 70])
+    out = []
+    for d in (dev, torch.device("cpu")):
+        before = dict(native.launch_counts)
+        res = beam_decode_ids(model.to(d), feats.to(d), lengths.to(d), 3,
+                              10, 1, 0, 30, 0.1)
+        out.append([r.cpu() for r in res])
+        if d == dev:
+            torch.cuda.synchronize()
+            assert native.launch_counts["vgg_block1_f32"] == \
+                before["vgg_block1_f32"] + 1
+    (ct, cs, cw, cl), (pt, ps, pw, pl) = out
+    assert torch.equal(ct, pt) and torch.equal(cl, pl) and torch.equal(cw, pw)
+    real = ps > NEG_INF / 2
+    assert torch.equal(cs > NEG_INF / 2, real)
+    torch.testing.assert_close(cs[real], ps[real], rtol=1e-4, atol=1e-4)
+
+
+def _fusion_lm(path):
+    from mtl_tpu_torch.lm.fusion import save_lm_fusion
+    from mtl_tpu_torch.lm.model import RNNLM, init_lm_weights
+
+    words = ["<oov>", "<eos>", "the", "cat"] + [chr(0x4E00 + i)
+                                               for i in range(40)]
+    arch = {"rnn_type": "LSTM", "ntoken": len(words), "ninp": 200,
+            "nhid": 200, "nlayers": 2, "dropout": 0.2, "tie_weights": False}
+    lm = RNNLM("LSTM", len(words), 200, 200, 2, 0.2, False)
+    init_lm_weights(lm, torch.Generator().manual_seed(4))
+    save_lm_fusion(str(path), lm, {w: i for i, w in enumerate(words)}, arch)
+
+
+def test_lm_scorer_on_the_card_matches_the_cpu_with_tf32_on(dev, tmp_path,
+                                                            monkeypatch):
+    """LM scores of a bank-sized batch on the card against the CPU, with
+    TF32 allowed globally (torch's cuDNN default): the LM's f32 context
+    holds them to 1e-5 and restores the flags."""
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.lm.fusion import LMScorer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    _fusion_lm(tmp_path / "lm")
+    vocab = Vocab.from_labels(list("abcdefghijklmnopqrstuvwxyz ")
+                              + [chr(0x4E00 + i) for i in range(40)])
+    rng = np.random.RandomState(2)
+    id_lists = [[1] + rng.randint(4, len(vocab), size=n).tolist() + [2]
+                for n in rng.randint(0, 300, size=64)]
+    card = LMScorer.load(str(tmp_path / "lm"), dev).score_batch(id_lists,
+                                                                 vocab)
+    cpu = LMScorer.load(str(tmp_path / "lm"), torch.device("cpu"))
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+    for ids, got in zip(id_lists, card):
+        want = cpu.score_ids(ids, vocab)
+        assert got[1:] == want[1:]
+        assert abs(got[0] - want[0]) <= 1e-5, (got, want)
+
+
+def test_beam_test_main_launches_each_kernel_once_a_batch(dev, tmp_path,
+                                                          monkeypatch):
+    """test_main --beam-search --lm-rescoring on cuda at bf16: the FFT
+    STFT once a batch, both tensor-core VGG kernels once a batch (again
+    for a batch that switches to greedy), the direct STFT never."""
+    from mtl_tpu_torch.cli.asr import test_main
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    monkeypatch.chdir(tmp_path)
+    manifests, labels = make_synthetic_corpus(
+        str(tmp_path / "corpus"), num_tasks=1, utts_per_task=5, min_sec=1.0,
+        max_sec=1.9, seed=2)
+    vocab = Vocab.from_json(labels)
+    cfg, model = _tiny_asr(len(vocab), "bfloat16")
+    cfg.name, cfg.save_folder = "beam", str(tmp_path / "models")
+    path = save_checkpoint(cfg, vocab, model.state_dict(), 0,
+                           best_model=True)
+    _fusion_lm(tmp_path / "lm")
+    native.reset_launch_counts()
+    res = test_main(["--test-manifest-list", manifests[0], "--labels-path",
+                     labels, "--continue-from", path, "--k-test", "2",
+                     "--beam-search", "--beam-width", "4", "--beam-nbest",
+                     "3", "--lm-rescoring", "--lm-path",
+                     str(tmp_path / "lm"), "--name", "beam", "--device",
+                     dev.type])
+    torch.cuda.synchronize()
+    c = native.launch_counts
+    assert res["utterances"] == 5
+    batches, switched = 3, res["switched_to_greedy"]
+    assert c["stft_logmag"] == batches and c["stft_logmag_direct"] == 0, c
+    assert c["vgg_block1"] == c["vgg_block2"] == batches + switched, c
+    assert c["vgg_block1_f32"] == c["vgg_block2_f32"] == 0, c

@@ -68,6 +68,25 @@ def test_meta_transfer_train_main_raises_without_cuda(monkeypatch):
         asr.meta_transfer_train_main(["--train-manifest-list", "unused"])
 
 
+@pytest.mark.parametrize("entry,argv", [
+    ("asr.test_main", ["--continue-from", "unused", "--beam-search",
+                       "--lm-rescoring", "--lm-path", "unused"]),
+    ("lm.test_main", ["--load", "unused"]),
+    ("lm.convert_main", ["--load", "unused", "--save", "unused"]),
+], ids=["beam_test_main", "lm_test_main", "lm_convert_main"])
+def test_beam_and_lm_entry_points_raise_without_cuda(monkeypatch, entry,
+                                                     argv):
+    """The beam decode (with LM fusion) and the LM's test and convert
+    entry points ask for cuda too, and raise without it."""
+    import importlib
+
+    module, fn = entry.split(".")
+    cli = importlib.import_module(f"mtl_tpu_torch.cli.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(cli, fn)(argv)
+
+
 def test_vgg_stack_refuses_other_devices():
     """The stack's autograd Function launches or refuses like the blocks;
     it never runs the plain version on a non-CPU tensor."""
