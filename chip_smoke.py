@@ -65,7 +65,33 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    batch (2 tasks of 2 utterances, 400 frames): outer loss, outer
    gradients and the params after the Adam update; the f32 VGG kernels and
    the stack's backward must have launched;
-11. prints the kernels as one JSON line and, last, the result line.
+11. trains the same width through ``joint_train_main`` on ``cuda`` (Adam,
+   the phase-9 corpus, 3 tasks of 8 utterances, 6 iterations, an
+   evaluation and a checkpoint every 3) with the counters zeroed before and
+   read after: the FFT STFT, both bf16 VGG kernels and the stack's backward
+   at least K times a step, the direct STFT and the f32 VGG kernels never;
+   then ``finetune_main --opt_name sgd`` from phase 9's meta checkpoint
+   (whose config names nesterov SGD, so its Adam state is left and the
+   weights alone restored) for iterations 7-9; then one joint step timed
+   and profiled as in phase 9;
+12. checks one joint step at f32 on the card against the CPU as phase 10
+   does: loss, gradients, params after Adam and after nesterov SGD;
+13. runs the LM's four training mains on ``cuda`` at ``lm_parser``'s
+   defaults (LSTM, emsize 200, nhid 200, 2 layers, batch 20, bptt 35,
+   dropout 0.2, lr 20, clip 0.25) over three written word corpora of
+   100,000 training tokens and ~20,000 words in all: ``main_main`` for 2
+   epochs on the code-switched corpus, ``main_joint_main`` and
+   ``main_meta_transfer_main`` for 40 iterations over the three,
+   ``main_meta_transfer_main --second-order`` for 6, ``finetune_main`` of
+   the meta checkpoint for an epoch and the LM's ``test_main`` on the
+   result; every printed loss must be finite and every checkpoint exist;
+14. times each LM step (a plain window, a joint iteration, a meta
+   iteration of first and of second order) at those widths: the median of
+   10 steps after 2, the peak memory and one profiled step's busy share;
+15. checks one LM step of each kind at f32 (dropout 0) on the card with
+   TF32 allowed globally against the CPU: loss within 1e-5 relative,
+   params after the step within 1e-5 * lr;
+16. prints the kernels as one JSON line and, last, the result line.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -692,8 +718,12 @@ K_TASKS, K_SHOT, TRAIN_STEPS = 3, 8, 6
 
 
 class _Recorder:
-    """An outer optimizer that keeps the outer gradients and moves nothing
-    (the meta step's gradients, read out)."""
+    """An optimizer that keeps the gradients and moves nothing (a step's
+    gradients, read out)."""
+
+    @staticmethod
+    def init(params):
+        return None
 
     def update(self, grads, state, params):
         self.grads = {k: g.detach().float().cpu() for k, g in grads.items()}
@@ -731,7 +761,8 @@ KERNEL_GROUPS = (  # (group, substrings of a kernel's name), first match
 
 
 def train(torch, dev, work):
-    """Phase 8. Returns (launch counts of the main run, corpus dir)."""
+    """Phase 9. Returns (launch counts of the main run, corpus dir, models
+    dir)."""
     from mtl_tpu_torch.cli.asr import meta_transfer_train_main
     from mtl_tpu_torch.config import build_parser, config_from_args
     from mtl_tpu_torch.data.dataset import SpectrogramDataset
@@ -748,11 +779,11 @@ def train(torch, dev, work):
         corpus, num_tasks=K_TASKS, utts_per_task=16, min_sec=4.0,
         max_sec=7.9, seed=SEED + 1)
     models = os.path.join(work, "train_models")
-    argv = (["--train-manifest-list", *manifests, "--valid-manifest-list",
-             manifests[-1], "--labels-path", labels, "--device", dev.type,
-             "--k-train", str(K_SHOT), "--k-valid", str(K_SHOT),
-             "--evaluate-every", "3", "--save-every", "3", "--dropout", "0.1",
-             "--save-folder", models, "--src-buckets", "800"] + TRAIN_FLAGS)
+    # the meta trainer's outer optimizer is Adam whatever --opt_name says;
+    # the flag is kept in the checkpoint's config, which is what a finetune
+    # from it reads (phase 11 finetunes with nesterov SGD)
+    argv = _asr_train_argv(dev, manifests, labels, models) + [
+        "--opt_name", "sgd"]
     buf = io.StringIO()
     torch.cuda.synchronize()
     native.reset_launch_counts()
@@ -826,13 +857,9 @@ def train(torch, dev, work):
     gen = torch.Generator(dev).manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = []
-    for sup, qry in batches[:5]:
-        t0 = time.perf_counter()
-        state, m = step(state, sup, qry, gen)
-        float(m["outer_loss"])
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    it = iter(batches)
+    ms = _time_steps(torch, lambda: float(
+        step(state, *next(it), gen)[1]["outer_loss"]), 5)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     steady = sorted(ms[1:])
     print(f"meta step (flagship, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}, "
@@ -840,31 +867,12 @@ def train(torch, dev, work):
           + ", ".join(f"{v:.3f}" for v in ms) + f" ms; median after the "
           f"first {(steady[1] + steady[2]) / 2:.3f} ms; peak memory "
           f"{peak:.1f} MiB", flush=True)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, *batches[5], gen)
-        float(m["outer_loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy, by_name, prof = _profile_once(
+        torch, lambda: float(step(state, *batches[5], gen)[1]["outer_loss"]))
     events = prof.events()
-    busy = _busy_ms(events, torch)
-    by_name = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    groups = {}
-    for name, t in by_name.items():
-        low = name.lower()
-        g = next((g for g, keys in KERNEL_GROUPS
-                  if any(k in low for k in keys)), "other")
-        groups[g] = groups.get(g, 0.0) + t
     print(f"profiled meta step: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}; device ms by "
-          f"group: " + "; ".join(f"{g} {t:.3f}" for g, t in sorted(
-              groups.items(), key=lambda x: -x[1])), flush=True)
+          f"group: {_by_group(by_name)}", flush=True)
     for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         print(f"  top device op {t:9.3f} ms  {name[:110]}", flush=True)
     host_ops = [e for e in events if e.cpu_parent is None
@@ -876,20 +884,28 @@ def train(torch, dev, work):
                     )[:10]:
         print(f"  top host op {a.self_cpu_time_total / 1e3:9.3f} ms "
               f"{a.count:6d} calls  {a.key[:80]}", flush=True)
-    return counts, corpus
+    return counts, corpus, models
 
 
-def train_parity(torch, dev, corpus):
-    """Phase 9: one f32 meta step on the card (kernels) against the CPU
-    (plain versions). Returns the card run's launch counts."""
+def _asr_train_argv(dev, manifests, labels, models):
+    """The training CLIs' flags of phases 9 and 11: the flagship width,
+    K = 3 tasks of 8 utterances, dropout 0.1, one 800-frame bucket, an
+    evaluation and a checkpoint every 3 iterations."""
+    return (["--train-manifest-list", *manifests, "--valid-manifest-list",
+             manifests[-1], "--labels-path", labels, "--device", dev.type,
+             "--k-train", str(K_SHOT), "--k-valid", str(K_SHOT),
+             "--evaluate-every", "3", "--save-every", "3", "--dropout", "0.1",
+             "--save-folder", models, "--src-buckets", "800"] + TRAIN_FLAGS)
+
+
+def _parity_inputs(torch, corpus):
+    """The f32 parity checks' inputs: (config at f32 with dropout 0, vocab,
+    support of 2 tasks x 2 utterances at 400 frames, query of 2, weights
+    with nonzero conv biases)."""
     from mtl_tpu_torch.config import build_parser, config_from_args
     from mtl_tpu_torch.data.dataset import SpectrogramDataset
     from mtl_tpu_torch.data.vocab import Vocab
     from mtl_tpu_torch.models.transformer import build_model, init_weights
-    from mtl_tpu_torch.ops import native
-    from mtl_tpu_torch.train.optim import Adam
-    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
-                                           make_meta_step)
 
     m0, m2 = (os.path.join(corpus, f"manifest_task{i}.csv") for i in (0, 2))
     cfg = config_from_args(build_parser("").parse_args(
@@ -909,32 +925,43 @@ def train_parity(torch, dev, corpus):
             conv.bias.copy_(torch.from_numpy(
                 rng.randn(conv.bias.numel()).astype(np.float32) * 0.1))
     weights = {k: v.clone() for k, v in ref.state_dict().items()}
-    lr = cfg.train.meta_lr
+    return cfg, vocab, support, query, weights
+
+
+def _step_parity(torch, dev, cfg, vocab, weights, run, opts, what):
+    """One f32 step on the card (kernels) against the CPU (plain versions)
+    from ``weights``: ``run(model, opt, device) -> loss`` once with a
+    gradient recorder and once with each optimizer of ``opts`` ((name, lr,
+    factory), ...). Checks the loss, the gradients and the params after
+    each update; returns the card's launch counts of its last run."""
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.ops import native
+
+    runs = (("grads", None, _Recorder),) + opts
     res = []  # [card, cpu]
     for d in (dev, torch.device("cpu")):
         out = {}
-        for name, opt in (("grads", _Recorder()), ("adam", Adam(lr))):
+        for name, _, make in runs:
             model = build_model(cfg, len(vocab), d)
             model.load_state_dict(weights)
-            state = init_train_state(model, Adam(lr))
-            if d == dev and name == "adam":
+            opt = make()
+            if d == dev and name == runs[-1][0]:
                 torch.cuda.synchronize()
                 native.reset_launch_counts()
-            state, m = make_meta_step(model, cfg, opt)(
-                state, batch_to_device(support, d), batch_to_device(query, d))
+            out[f"{name}_loss"] = float(run(model, opt, d))
             out[name] = opt.grads if name == "grads" else {
-                k: v.detach().cpu() for k, v in state.params.items()}
-            out[f"{name}_loss"] = float(m["outer_loss"])
-            if d == dev and name == "adam":
+                k: v.detach().cpu() for k, v in model.named_parameters()}
+            if d == dev and name == runs[-1][0]:
                 torch.cuda.synchronize()
                 counts = dict(native.launch_counts)
         res.append(out)
     card, cpu = res
-    for key in ("grads_loss", "adam_loss"):
-        print(f"train parity {key}: card {card[key]:.7f} cpu {cpu[key]:.7f}",
+    for name, _, _ in runs:
+        key = f"{name}_loss"
+        print(f"{what} parity {key}: card {card[key]:.7f} cpu {cpu[key]:.7f}",
               flush=True)
         check(math.isclose(card[key], cpu[key], rel_tol=1e-3),
-              f"outer loss card {card[key]} cpu {cpu[key]}")
+              f"{what} loss card {card[key]} cpu {cpu[key]}")
     scale = max(float(g.abs().max()) for g in cpu["grads"].values())
     gerr = max(float((card["grads"][k] - g).abs().max())
                for k, g in cpu["grads"].items())
@@ -942,28 +969,532 @@ def train_parity(torch, dev, corpus):
     for k, g in cpu["grads"].items():
         torch.testing.assert_close(card["grads"][k], g, rtol=1e-3,
                                    atol=1e-3 * scale)
-    # Adam's first step moves each weight by about lr * sign(g); entries
-    # whose gradient is below 1e-3 of the largest may take either sign
-    # on either side, the rest must agree to 0.1 lr
-    perr, checked = 0.0, 0
-    for k, p in cpu["adam"].items():
-        d = (card["adam"][k] - p).abs()
-        check(float(d.max()) <= 2 * lr + 1e-7, f"{k} moved {float(d.max())}")
-        sure = cpu["grads"][k].abs() > 1e-3 * scale
-        if sure.any():
-            perr = max(perr, float(d[sure].max()))
-            checked += int(sure.sum())
-    check(perr <= 0.1 * lr, f"post-step params differ by {perr}")
-    print(f"train parity (f32, 2 tasks x 2 utterances, 400 frames): outer "
-          f"grads max_abs_err {gerr:.3e} of max {scale:.3e}; post-step "
-          f"params max_abs_err {perr:.3e} (meta_lr {lr}) over {checked} "
-          f"entries with |g| > 1e-3 max", flush=True)
+    notes = []
+    for name, lr, _ in opts:
+        perr, checked = 0.0, 0
+        for k, p in cpu[name].items():
+            d = (card[name][k] - p).abs()
+            if name == "sgd":
+                # nesterov's first step moves by lr * 1.9 g
+                sure = torch.ones_like(d, dtype=torch.bool)
+                check(float(d.max()) <= lr * 1.9 * 1e-3 * scale + 1e-8,
+                      f"{what} sgd {k} differs by {float(d.max())}")
+            else:
+                # Adam's first step moves each weight by about lr * sign(g);
+                # entries whose gradient is below 1e-3 of the largest may
+                # take either sign on either side, the rest must agree to
+                # 0.1 lr
+                check(float(d.max()) <= 2 * lr + 1e-7,
+                      f"{what} {k} moved {float(d.max())}")
+                sure = cpu["grads"][k].abs() > 1e-3 * scale
+            if sure.any():
+                perr = max(perr, float(d[sure].max()))
+                checked += int(sure.sum())
+        if name != "sgd":
+            check(perr <= 0.1 * lr, f"{what} post-{name} params differ by "
+                                    f"{perr}")
+        notes.append(f"params after {name} (lr {lr}) max_abs_err {perr:.3e} "
+                     f"over {checked} entries")
+    print(f"{what} parity (f32, 2 tasks x 2 utterances, 400 frames): "
+          f"grads max_abs_err {gerr:.3e} of max {scale:.3e}; "
+          + "; ".join(notes), flush=True)
+    return counts
+
+
+def train_parity(torch, dev, corpus):
+    """Phase 10: one f32 meta step on the card (kernels) against the CPU
+    (plain versions): outer loss and gradients, and params after Adam (the
+    entries with |g| > 1e-3 of the largest). Returns the card run's launch
+    counts."""
+    from mtl_tpu_torch.train.optim import Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    cfg, vocab, support, query, weights = _parity_inputs(torch, corpus)
+    lr = cfg.train.meta_lr
+
+    def run(model, opt, d):
+        state = init_train_state(model, opt)
+        _, m = make_meta_step(model, cfg, opt)(
+            state, batch_to_device(support, d), batch_to_device(query, d))
+        return m["outer_loss"]
+
+    counts = _step_parity(torch, dev, cfg, vocab, weights, run,
+                          (("adam", lr, lambda: Adam(lr)),), "train")
     print(f"launches in the f32 train parity run: {counts}", flush=True)
     check(all(counts[k] >= 4 for k in ("vgg_block1_f32", "vgg_block2_f32",
                                        "vgg_stack_bwd")),
           f"the f32 step must run the f32 VGG kernels and the backward: "
           f"{counts}")
     return counts
+
+
+def _time_steps(torch, fn, n):
+    """ms of ``n`` calls of ``fn``, each ended by a synchronize (host
+    clock)."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _profile_once(torch, fn):
+    """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
+    device ms by kernel name, the profiler's events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    by_name = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    return wall_ms, _busy_ms(events, torch), by_name, prof
+
+
+def _by_group(by_name):
+    groups = {}
+    for name, t in by_name.items():
+        low = name.lower()
+        g = next((g for g, keys in KERNEL_GROUPS
+                  if any(k in low for k in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + t
+    return "; ".join(f"{g} {t:.3f}" for g, t in sorted(
+        groups.items(), key=lambda x: -x[1]))
+
+
+JOINT_STEPS, FINETUNE_STEPS = 6, 3
+
+
+def joint(torch, dev, work, corpus, meta_models):
+    """Phase 11: joint training at the flagship width through
+    ``joint_train_main`` on cuda (Adam, K 3 x 8 utterances, bf16, dropout
+    0.1, 6 iterations, an evaluation and a checkpoint every 3), the counts
+    zeroed before and read after; ``finetune_main`` from phase 9's meta
+    checkpoint (its config says nesterov SGD, so the Adam state is left and
+    the weights alone restored) for 3 iterations; then one joint step
+    timed on device-side batches, its peak memory and one profiled step.
+    Returns the launch counts of the joint run."""
+    from mtl_tpu_torch.cli.asr import finetune_main, joint_train_main
+    from mtl_tpu_torch.config import build_parser, config_from_args
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.train.optim import SGDState, make_joint_optimizer
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step)
+
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    labels = os.path.join(corpus, "labels.json")
+    models = os.path.join(work, "joint_models")
+    argv = _asr_train_argv(dev, manifests, labels, models)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = joint_train_main(argv + ["--epochs", str(JOINT_STEPS),
+                                         "--name", "chip_joint"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(native.launch_counts)
+    out = buf.getvalue()
+    with open(os.path.join(work, "joint.txt"), "w", encoding="utf-8") as f:
+        f.write(out)
+    lines = [ln for ln in out.splitlines() if "TRAIN LOSS" in ln]
+    for ln in lines + [ln for ln in out.splitlines() if "VALID" in ln]:
+        print(ln, flush=True)
+    losses = [float(re.search(r"TRAIN LOSS:(\S+)", ln).group(1))
+              for ln in lines]
+    check(len(losses) == JOINT_STEPS and all(map(math.isfinite, losses)),
+          f"joint losses {losses}")
+    check(state.step == JOINT_STEPS, f"joint trained {state.step} steps")
+    for tag in ("step_3", "step_6", "best_model"):
+        for name in ("model.pt", "train_state.pt", "meta.json"):
+            check(os.path.exists(os.path.join(models, "chip_joint", tag,
+                                              name)), f"joint {tag}/{name}")
+    totals = [float(re.search(r"TOTAL TIME:(\S+)", ln).group(1))
+              for ln in lines]
+    per_it = sorted(b - a for a, b in zip(totals, totals[1:]))
+    print(f"joint run: {JOINT_STEPS} joint steps (K {K_TASKS} x {K_SHOT} "
+          f"utterances, bf16, Adam) in {wall:.3f} s with 2 evaluations and 3 "
+          f"checkpoints; TOTAL TIME per iteration after the first (host "
+          f"clock, batch to device + step + train CER): median "
+          f"{per_it[len(per_it) // 2] * 1e3:.3f} ms", flush=True)
+    print(f"launches in the joint run: {counts}", flush=True)
+    need = K_TASKS * JOINT_STEPS
+    check(all(counts[k] >= need for k in ("vgg_block1", "vgg_block2",
+                                          "vgg_stack_bwd", "stft_logmag"))
+          and counts["stft_logmag_direct"] == 0
+          and counts["vgg_block1_f32"] == counts["vgg_block2_f32"] == 0,
+          f"the joint run must launch the FFT STFT, each bf16 VGG kernel "
+          f"and the backward >= {need} times, the direct STFT and the f32 "
+          f"VGG kernels never: {counts}")
+
+    # finetune from the meta checkpoint: iterations 7-9 by nesterov SGD
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = finetune_main(_asr_train_argv(dev, manifests, labels,
+                                              models) + [
+            "--epochs", str(TRAIN_STEPS + FINETUNE_STEPS), "--opt_name",
+            "sgd", "--name", "chip_finetune", "--continue-from",
+            os.path.join(meta_models, "chip_train", "step_6")])
+    out = buf.getvalue()
+    with open(os.path.join(work, "finetune.txt"), "w", encoding="utf-8") as f:
+        f.write(out)
+    lines = [ln for ln in out.splitlines() if "TRAIN LOSS" in ln]
+    its = [int(x) for x in re.findall(r"\(Iteration (\d+)\) TRAIN LOSS",
+                                      out)]
+    losses = [float(re.search(r"TRAIN LOSS:(\S+)", ln).group(1))
+              for ln in lines]
+    check(its == list(range(TRAIN_STEPS + 1,
+                            TRAIN_STEPS + FINETUNE_STEPS + 1))
+          and all(map(math.isfinite, losses))
+          and "RESTORED STATE" in out
+          and isinstance(state.opt_state, SGDState)
+          and state.opt_state.trace is not None
+          and state.step == FINETUNE_STEPS,
+          f"finetune ran iterations {its}, losses {losses}, step "
+          f"{state.step}, state {type(state.opt_state).__name__}")
+    for ln in lines:
+        print(ln, flush=True)
+    print(f"finetune from the meta checkpoint step_6: iterations {its} by "
+          f"nesterov SGD, weights restored alone (the Adam state does not "
+          f"fit SGD), step {state.step}", flush=True)
+
+    # one joint step, timed and profiled on device-side batches
+    cfg = config_from_args(build_parser("").parse_args(argv + [
+        "--name", "chip_joint_timing"]))
+    with open(labels, encoding="utf-8") as f:
+        vocab = Vocab.from_labels(json.load(f))
+    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=SEED)
+    batches = [batch_to_device(ds.sample_meta_batch(K_SHOT, 1)[0], dev)
+               for _ in range(6)]
+    model = build_model(cfg, len(vocab), dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    opt = make_joint_optimizer(cfg)
+    state = init_train_state(model, opt)
+    step = make_joint_step(model, cfg, opt)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it = iter(batches)
+    ms = _time_steps(torch, lambda: float(step(state, next(it), gen)[1]), 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    steady = sorted(ms[1:])
+    print(f"joint step (flagship, bf16, Adam, K {K_TASKS} x {K_SHOT}, "
+          f"{batches[0]['audio'].shape[-1]} samples a row): "
+          + ", ".join(f"{v:.3f}" for v in ms) + f" ms; median after the "
+          f"first {(steady[1] + steady[2]) / 2:.3f} ms; peak memory "
+          f"{peak:.1f} MiB", flush=True)
+    wall_ms, busy, by_name, _ = _profile_once(
+        torch, lambda: float(step(state, batches[5], gen)[1]))
+    print(f"profiled joint step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}; device ms by "
+          f"group: {_by_group(by_name)}", flush=True)
+    return counts
+
+
+def joint_parity(torch, dev, corpus):
+    """Phase 12: one f32 joint step on the card (kernels) against the CPU
+    (plain versions): loss and gradients, and params after Adam and after
+    nesterov SGD. Returns the card run's launch counts."""
+    from mtl_tpu_torch.train.optim import SGD, Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step)
+
+    cfg, vocab, support, _, weights = _parity_inputs(torch, corpus)
+    lr = cfg.train.lr
+
+    def run(model, opt, d):
+        state = init_train_state(model, opt)
+        return make_joint_step(model, cfg, opt)(
+            state, batch_to_device(support, d))[1]
+
+    counts = _step_parity(
+        torch, dev, cfg, vocab, weights, run,
+        (("adam", lr, lambda: Adam(lr)),
+         ("sgd", lr, lambda: SGD(lr, cfg.train.momentum, nesterov=True))),
+        "joint")
+    print(f"launches in the f32 joint parity run: {counts}", flush=True)
+    check(all(counts[k] >= 2 for k in ("vgg_block1_f32", "vgg_block2_f32",
+                                       "vgg_stack_bwd")),
+          f"the f32 joint step must run the f32 VGG kernels and the "
+          f"backward: {counts}")
+    return counts
+
+
+LM_WORDS, LM_TOKENS = (12000, 8000), 100_000
+
+
+def write_lm_corpora(root, seed):
+    """Three word corpora of LM_TOKENS training tokens each (train, valid,
+    test of 10 % each): an English-like task over 12,000 words, a Chinese
+    task over 8,000 characters and a code-switched task over both, so the
+    chained dictionary holds ~20,000 words. Half of each task's tokens
+    follow a Zipf law over its words, half are uniform; valid and test use
+    only words of their task's train text. Returns the task dirs."""
+    rng = np.random.RandomState(seed)
+    en = [f"w{i}" for i in range(LM_WORDS[0])]
+    zh = [chr(0x4E00 + i) for i in range(LM_WORDS[1])]
+    dirs = []
+    for k, pool in enumerate((en, zh, en + zh)):
+        order = rng.permutation(len(pool))
+
+        def draw(n, words):
+            zipf = np.minimum(rng.zipf(1.3, n) - 1, len(words) - 1)
+            ids = np.where(rng.rand(n) < 0.5, zipf,
+                           rng.randint(0, len(words), n))
+            return [words[i] for i in ids]
+
+        def write(path, tokens):
+            lines, i = [], 0
+            while i < len(tokens):
+                n = rng.randint(8, 26)
+                lines.append(" ".join(tokens[i:i + n]))
+                i += n
+            with open(path, "w", encoding="utf-8") as f:
+                f.write("\n".join(lines) + "\n")
+
+        d = os.path.join(root, f"lm_task{k}")
+        os.makedirs(d, exist_ok=True)
+        train = draw(LM_TOKENS, [pool[i] for i in order])
+        write(os.path.join(d, "train.txt"), train)
+        seen = sorted(set(train))
+        for split in ("valid", "test"):
+            write(os.path.join(d, f"{split}.txt"),
+                  draw(LM_TOKENS // 10, seen))
+        dirs.append(d)
+    return dirs
+
+
+def _lm_lists(tasks):
+    out = []
+    for split in ("train", "valid", "test"):
+        out += [f"--{split}-path-list"] + [os.path.join(t, f"{split}.txt")
+                                           for t in tasks]
+    return out
+
+
+def lm_train(torch, dev, work):
+    """Phase 13: the four LM training mains on cuda at lm_parser's
+    defaults (LSTM, emsize 200, nhid 200, 2 layers, batch 20, bptt 35,
+    dropout 0.2, lr 20, clip 0.25) over three written corpora: plain
+    epochs on the code-switched task, joint and first-order meta-transfer
+    over the three, meta-transfer with --second-order for a few
+    iterations, a finetune of the meta checkpoint, and the LM's test_main
+    on the finetuned LM. Returns the task dirs."""
+    from mtl_tpu_torch.cli import lm as cli
+
+    root = os.path.join(work, "lm_train")
+    tasks = write_lm_corpora(os.path.join(root, "corpus"), SEED + 3)
+    target = [a for split in ("train", "valid", "test")
+              for a in (f"--{split}_path",
+                        os.path.join(tasks[-1], f"{split}.txt"))]
+    base = ["--device", dev.type, "--save", os.path.join(root, "models")]
+    iters = ["--num-iterations", "40", "--log-interval", "10",
+             "--valid-interval", "20"]
+    runs = [
+        ("plain", cli.main_main, base + target + ["--epochs", "2",
+                                                  "--name", "plain"]),
+        ("joint", cli.main_joint_main,
+         base + _lm_lists(tasks) + iters + ["--name", "joint"]),
+        ("meta", cli.main_meta_transfer_main,
+         base + _lm_lists(tasks) + iters + ["--name", "meta"]),
+        ("meta_second_order", cli.main_meta_transfer_main,
+         base + _lm_lists(tasks) + [
+             "--num-iterations", "6", "--log-interval", "3",
+             "--valid-interval", "6", "--second-order", "--name", "so"]),
+    ]
+    saved = {}
+
+    def drive(name, main, argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.chdir(work), contextlib.redirect_stdout(buf):
+            res = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        with open(os.path.join(root, f"{name}.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write(out)
+        shown = [ln for ln in out.splitlines() if "loss" in ln
+                 or ln.startswith("SAVED")]
+        nums = [float(x) for ln in shown
+                for x in re.findall(r"loss\"?:?\s+([^\s,|]+)", ln)]
+        check(nums and all(map(math.isfinite, nums)),
+              f"LM {name}: {out[-800:]}")
+        for ln in shown:
+            print(f"lm {name}: {ln[:160]}", flush=True)
+        print(f"lm {name}: {wall:.3f} s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB",
+              flush=True)
+        return res
+
+    for name, main, argv in runs:
+        saved[name] = os.path.join(work, drive(name, main, argv))
+        for f in ("meta.json", "model.pt"):
+            check(os.path.exists(os.path.join(saved[name], f)),
+                  f"LM {name} saved no {f}")
+    ft = drive("finetune", cli.finetune_main, base + [
+        "--load", saved["meta"], "--epochs", "1", "--name", "finetune"]
+        + target[:4])
+    res = drive("test", cli.test_main, [
+        "--device", dev.type, "--load", os.path.join(work, ft),
+        "--test_path", os.path.join(tasks[-1], "test.txt"),
+        "--name", "chip_smoke_finetuned"])
+    check(math.isfinite(res["ppl"]), f"LM test_main {res}")
+    return tasks
+
+
+def _lm_setup(torch, tasks):
+    """(chained corpora, dictionary size, LMDataset at bptt 35, batch 20)."""
+    from mtl_tpu_torch.lm.data import Corpus, LMDataset
+
+    corpora, dictionary = [], None
+    for t in tasks:
+        c = Corpus(*(os.path.join(t, f"{s}.txt")
+                     for s in ("train", "valid", "test")), dictionary)
+        dictionary = c.dictionary
+        corpora.append(c)
+    return corpora, len(dictionary), LMDataset([c.train for c in corpora],
+                                               35, 20)
+
+
+# the LM steps measured, by the model's route (cell loop or cuDNN)
+LM_KINDS = {False: ("plain window", "joint iteration",
+                    "meta iteration (first order)"),
+            True: ("meta iteration (second order)",)}
+
+
+def _lm_steps(torch, model, ds, lr, gen):
+    """{kind: callable running one step of that kind on ``model``} over
+    the dataset's windows, at lm_parser's clip, ratio and meta_lr_factor
+    (second order needs a cell-loop model)."""
+    from mtl_tpu_torch.lm.data import batchify, get_batch
+    from mtl_tpu_torch.lm.train import (joint_ratios, make_lm_joint_step,
+                                        make_lm_meta_step, make_lm_sgd_step)
+
+    ratios = joint_ratios(3, 0.8)
+    source = ds.task_list[-1]
+    it = [0]
+    carry = [model.init_carry(source.shape[1])]
+
+    def windows():
+        i = it[0] % 50
+        it[0] += 1
+        samples = [ds.sample(k, i) for k in range(3)]
+        return (np.stack([s[0] for s in samples]),
+                np.stack([s[1] for s in samples]), *ds.sample(-1, i)[2:])
+
+    if model.cell_loop:
+        meta = make_lm_meta_step(model, 0.25, ratios, 3.0, second_order=True)
+        return {LM_KINDS[True][0]: lambda: meta(*windows(), lr, gen)[0]}
+    sgd = make_lm_sgd_step(model, 0.25)
+    jnt = make_lm_joint_step(model, 0.25, ratios)
+    meta = make_lm_meta_step(model, 0.25, ratios, 3.0)
+
+    def plain():
+        i = it[0] % ((len(source) - 1) // 35) * 35
+        it[0] += 1
+        loss, carry[0] = sgd(*get_batch(source, i, 35), lr, gen, carry[0])
+        return loss
+
+    def joint_step():
+        d, t, _, _ = windows()
+        return jnt(d, t, lr, gen)[0]
+
+    return dict(zip(LM_KINDS[False], (
+        plain, joint_step, lambda: meta(*windows(), lr, gen)[0])))
+
+
+def lm_timing(torch, dev, tasks):
+    """Phase 14: ms per LM step of each kind at lm_parser's defaults
+    (dropout 0.2 from a seeded generator), median of 10 after 2 warm-up
+    steps, each ended by a synchronize; peak memory; one profiled step's
+    busy share."""
+    from mtl_tpu_torch.lm.model import RNNLM, init_lm_weights
+
+    _, ntok, ds = _lm_setup(torch, tasks)
+    for cell_loop in (False, True):
+        model = RNNLM("LSTM", ntok, 200, 200, 2, 0.2, False,
+                      cell_loop=cell_loop)
+        init_lm_weights(model, torch.Generator().manual_seed(SEED))
+        model.to(dev)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        for kind, fn in _lm_steps(torch, model, ds, 20.0, gen).items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _time_steps(torch, lambda: float(fn()), 12)[2:]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            wall_ms, busy, by_name, _ = _profile_once(
+                torch, lambda: float(fn()))
+            top = sorted(by_name.items(), key=lambda x: -x[1])[:3]
+            print(f"LM {kind} (LSTM 200/200 x 2, {ntok} words, batch 20, "
+                  f"bptt 35, dropout 0.2): median {sorted(ms)[5]:.3f} ms "
+                  f"(min {min(ms):.3f}, max {max(ms):.3f}); peak memory "
+                  f"{peak:.1f} MiB; profiled: wall {wall_ms:.3f} ms, "
+                  f"device busy {busy:.3f} ms, busy share "
+                  f"{busy / wall_ms:.4f}; top device ops "
+                  + "; ".join(f"{n[:50]} {t:.3f}" for n, t in top),
+                  flush=True)
+
+
+def lm_parity(torch, dev, tasks):
+    """Phase 15: one step of each kind at f32 with dropout 0 on the card,
+    TF32 allowed globally (the steps hold themselves to f32, backward
+    included), against the CPU from the same weights and windows: loss
+    within 1e-5 relative, params after the SGD update within 1e-5 * lr."""
+    from mtl_tpu_torch.lm.model import RNNLM, init_lm_weights
+
+    _, ntok, ds = _lm_setup(torch, tasks)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for cell_loop in (False, True):
+            res = []
+            for d in (dev, torch.device("cpu")):
+                out = {}
+                for kind in LM_KINDS[cell_loop]:
+                    model = RNNLM("LSTM", ntok, 200, 200, 2, 0.0, False,
+                                  cell_loop=cell_loop)
+                    init_lm_weights(model, torch.Generator().manual_seed(
+                        SEED + 1))
+                    model.to(d)
+                    loss = float(_lm_steps(torch, model, ds, 20.0,
+                                           None)[kind]())
+                    out[kind] = (loss, {k: v.detach().cpu() for k, v in
+                                        model.state_dict().items()})
+                res.append(out)
+            for kind, (loss, params) in res[1].items():
+                card_loss, card_params = res[0][kind]
+                err = max(float((card_params[k] - v).abs().max())
+                          for k, v in params.items())
+                print(f"lm parity {kind} (f32, card with TF32 allowed vs "
+                      f"cpu): loss card {card_loss:.7f} cpu {loss:.7f}; "
+                      f"params after the step max_abs_err {err:.3e}",
+                      flush=True)
+                check(math.isclose(card_loss, loss, rel_tol=1e-5),
+                      f"LM {kind} loss card {card_loss} cpu {loss}")
+                check(err <= 1e-5 * 20.0, f"LM {kind} params differ by {err}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
 
 
 def main():
@@ -1086,9 +1617,22 @@ def main():
 
     # 9. train the flagship width through the CLI; 10. f32 train parity
     t0 = time.perf_counter()
-    _, train_corpus = train(torch, dev, WORK)
+    _, train_corpus, meta_models = train(torch, dev, WORK)
     train_parity(torch, dev, train_corpus)
     print(f"train phases {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11. joint training and finetune through the CLIs; 12. f32 parity
+    t0 = time.perf_counter()
+    joint(torch, dev, WORK, train_corpus, meta_models)
+    joint_parity(torch, dev, train_corpus)
+    print(f"joint phases {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13. the LM training mains; 14. LM step times; 15. LM f32 parity
+    t0 = time.perf_counter()
+    lm_tasks = lm_train(torch, dev, WORK)
+    lm_timing(torch, dev, lm_tasks)
+    lm_parity(torch, dev, lm_tasks)
+    print(f"LM training phases {time.perf_counter() - t0:.1f} s", flush=True)
 
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the STFT on the served path, the f32 VGG kernels on the
@@ -1101,7 +1645,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 11. results
+    # 16. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -3,6 +3,14 @@
 * ``meta_transfer_train_main`` — meta_transfer_train.py: the first-order
   meta-transfer trainer (``TransientTrainer``), console script
   ``mtl-torch-meta-transfer-train``;
+* ``joint_train_main`` — joint_train.py: the joint trainer
+  (``JointTrainer``: Adam, or ``--opt_name sgd``), console script
+  ``mtl-torch-joint-train``;
+* ``finetune_main`` — finetune.py: the joint trainer from the
+  ``--continue-from`` checkpoint (meta or joint), console script
+  ``mtl-torch-finetune``. As in the JAX package, a resumed run takes its
+  model and training settings from the checkpoint's config, with this
+  invocation's manifests, iteration count, name and device;
 * ``test_main`` — test.py: greedy or beam decode (``--beam-search``,
   optionally with LM shallow fusion, ``--lm-rescoring --lm-path``) of the
   test manifests from a port checkpoint, CER/WER + EN/ZH CER report.
@@ -23,12 +31,26 @@ from ..lm.fusion import LMScorer
 from ..models.subsampler import subsampled_length
 from ..models.transformer import build_model
 from ..train.steps import prepare_features
-from ..train.trainer import TransientTrainer
+from ..train.trainer import JointTrainer, TransientTrainer
 from ..utils.checkpoint import load_checkpoint
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer, calculate_cer_en_zh, calculate_wer
 from .common import (build_datasets, build_vocab, load_asr_model,
                      maybe_resume, resolve_device, setup)
+
+
+def _prepare(args):
+    """(cfg, vocab, train set, valid sets, model on the device, device,
+    start iteration, resumed metrics) of a training entry point."""
+    cfg = config_from_args(args)
+    device = resolve_device(cfg.device)
+    setup(cfg)
+    cfg, vocab, start_it, metrics = maybe_resume(cfg)
+    if vocab is None:
+        vocab = build_vocab(cfg)
+    train_ds, valid_sets = build_datasets(cfg, vocab)
+    model = build_model(cfg, len(vocab), device)
+    return cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics
 
 
 def meta_transfer_train_main(argv=None):
@@ -38,20 +60,34 @@ def meta_transfer_train_main(argv=None):
     ``--device``. Returns the final ``TrainState``."""
     parser = build_parser("Transformer ASR meta training (PyTorch port)")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
-    device = resolve_device(cfg.device)
     if args.num_meta_test:
         raise ValueError("--num-meta-test is not ported yet")
-    setup(cfg)
-    cfg, vocab, start_it, metrics = maybe_resume(cfg)
-    if vocab is None:
-        vocab = build_vocab(cfg)
-    train_ds, valid_sets = build_datasets(cfg, vocab)
-    model = build_model(cfg, len(vocab), device)
+    cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics = \
+        _prepare(args)
     trainer = TransientTrainer(model, cfg, vocab, device)
     log_print("Transient Trainer is initialized")
     return trainer.train(train_ds, valid_sets, start_it=start_it,
                          num_it=cfg.train.epochs, last_metrics=metrics)
+
+
+def joint_train_main(argv=None):
+    """joint_train.py parity (mtl_tpu/cli/asr.py:84-97): the joint trainer
+    on ``--device``. Returns the final ``TrainState``."""
+    parser = build_parser("Transformer ASR joint training (PyTorch port)")
+    cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics = \
+        _prepare(parser.parse_args(argv))
+    trainer = JointTrainer(model, cfg, vocab, device)
+    return trainer.train(train_ds, valid_sets, start_it=start_it,
+                         num_it=cfg.train.epochs, last_metrics=metrics)
+
+
+def finetune_main(argv=None):
+    """finetune.py parity (mtl_tpu/cli/asr.py:112-119): the joint trainer
+    from a meta or joint ``--continue-from`` checkpoint."""
+    parser = build_parser("Transformer ASR finetuning (PyTorch port)")
+    if not config_from_args(parser.parse_args(argv)).continue_from:
+        raise ValueError("--continue-from is required for finetune")
+    return joint_train_main(argv)
 
 
 def test_main(argv=None):

@@ -19,7 +19,9 @@ The training state moves the same way: optax Adam's ``mu`` and ``nu`` are
 trees shaped like the params, so they map by the same rules onto the port's
 ``AdamState`` (keyed by parameter name), and ``count`` is the step count.
 A JAX ``TrainState`` (step, params, ``opt_state[0]`` of ``optax.adam``)
-can so continue in the port and back.
+can so continue in the port and back. The ``trace`` of optax's
+``TraceState`` (``optax.sgd`` with momentum) maps the same way onto the
+port's ``SGDState``.
 
 The word-level LM (mtl_tpu/lm/model.py ``RNNLM``) maps by its own rules
 (``lm_params_to_torch`` / ``torch_to_flax_lm_params``): the flax cells keep
@@ -46,7 +48,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .train.optim import AdamState
+from .train.optim import AdamState, SGDState
 
 
 def _flatten(tree, prefix=()):
@@ -121,6 +123,18 @@ def adam_state_to_optax(state: AdamState):
     fields of optax's ``ScaleByAdamState`` in the Flax param layout."""
     return (torch_to_flax_params(state.mu), torch_to_flax_params(state.nu),
             np.asarray(state.count, np.int32))
+
+
+def sgd_state_from_optax(trace) -> SGDState:
+    """optax ``TraceState.trace`` (a param-shaped tree) -> the port's
+    ``SGDState``."""
+    return SGDState(flax_params_to_torch(trace))
+
+
+def sgd_state_to_optax(state: SGDState):
+    """The port's ``SGDState`` -> the ``trace`` tree of optax's
+    ``TraceState`` in the Flax param layout."""
+    return torch_to_flax_params(state.trace)
 
 
 # flax cell -> (input-side Dense names, hidden-side Dense names, the Dense

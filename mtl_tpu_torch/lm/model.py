@@ -12,8 +12,14 @@ LSTM biases sit on the hidden side (``h*``), GRU biases on ``ir``, ``iz``,
 as one library call per layer (``torch.lstm`` / ``gru`` / ``rnn_tanh`` /
 ``rnn_relu``: cuDNN on the card), whose cells carry two biases; the other
 one is a zero buffer, not a parameter, so training sees one bias per gate
-as flax does. The forward runs in true f32 (``strict_f32``): LM scores
-enter the beam's ranking.
+as flax does. The library call runs in the module's training mode: cuDNN
+computes a backward only from a forward in training mode. The forward runs
+in true f32 (``strict_f32``): LM scores enter the beam's ranking.
+
+``RNNLM(cell_loop=True)`` (the LM's ``--second-order`` meta-transfer) runs
+the recurrence instead as an explicit loop over time of matmuls and gate
+nonlinearities, which autograd differentiates twice: cuDNN's RNN backward
+has no double backward. Both routes compute the same cells.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..models.layers import dropout
 from ..utils.precision import strict_f32
@@ -65,9 +72,12 @@ class RNNLayer(nn.Module):
             return self.bias[:h3], torch.cat([self.zero_bias, self.bias[h3:]])
         return self.bias, self.zero_bias
 
-    def forward(self, x: torch.Tensor, carry):
+    def forward(self, x: torch.Tensor, carry, cell_loop: bool = False):
         """x [T, B, in]; carry (h, c) for LSTM, else h, each [1, B, H].
-        Returns (output [T, B, H], new carry)."""
+        Returns (output [T, B, H], new carry): one library call, or with
+        ``cell_loop`` the explicit loop over time."""
+        if cell_loop:
+            return self._cell_loop(x, carry)
         params = [self.weight_ih, self.weight_hh, *self.biases()]
         hx = list(carry) if self.rnn_type == "LSTM" else carry
         with warnings.catch_warnings():
@@ -76,22 +86,50 @@ class RNNLayer(nn.Module):
             # default 200 x 200) and would warn about it once
             warnings.filterwarnings("ignore", message="RNN module weights")
             out = _RECURRENCE[self.rnn_type](x, hx, params, True, 1, 0.0,
-                                             False, False, False)
+                                             self.training, False, False)
         if self.rnn_type == "LSTM":
             return out[0], (out[1], out[2])
         return out[0], out[1]
+
+    def _cell_loop(self, x: torch.Tensor, carry):
+        """The library's cells (torch's gate equations) one step at a time,
+        in differentiable tensor ops."""
+        b_ih, b_hh = self.biases()
+        xs = F.linear(x, self.weight_ih, b_ih)  # every step's input side
+        lstm = self.rnn_type == "LSTM"
+        h, c = (carry[0][0], carry[1][0]) if lstm else (carry[0], None)
+        outs = []
+        for xt in xs:
+            hs = F.linear(h, self.weight_hh, b_hh)
+            if lstm:
+                i, f, g, o = (xt + hs).chunk(4, -1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+            elif self.rnn_type == "GRU":
+                xr, xz, xn = xt.chunk(3, -1)
+                hr, hz, hn = hs.chunk(3, -1)
+                r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+                h = (1 - z) * torch.tanh(xn + r * hn) + z * h
+            else:
+                pre = xt + hs
+                h = torch.tanh(pre) if self.rnn_type == "RNN_TANH" \
+                    else torch.relu(pre)
+            outs.append(h)
+        out = torch.stack(outs)
+        return out, ((h[None], c[None]) if lstm else h[None])
 
 
 class RNNLM(nn.Module):
     def __init__(self, rnn_type: str, ntoken: int, ninp: int, nhid: int,
                  nlayers: int, dropout: float = 0.5,
-                 tie_weights: bool = False):
+                 tie_weights: bool = False, cell_loop: bool = False):
         super().__init__()
         if tie_weights and nhid != ninp:
             raise ValueError(
                 "When using the tied flag, nhid must be equal to emsize")
         self.rnn_type, self.ntoken, self.nhid = rnn_type, ntoken, nhid
         self.dropout, self.tie_weights = dropout, tie_weights
+        self.cell_loop = cell_loop
         self.embed = nn.Embedding(ntoken, ninp)
         self.rnns = nn.ModuleList(
             RNNLayer(rnn_type, ninp if i == 0 else nhid, nhid)
@@ -118,7 +156,7 @@ class RNNLM(nn.Module):
             h = dropout(self.embed(tokens), self.dropout, gen)
             new_carry = []
             for i, rnn in enumerate(self.rnns):
-                h, c = rnn(h, carry[i])
+                h, c = rnn(h, carry[i], self.cell_loop)
                 new_carry.append(c)
                 if i < len(self.rnns) - 1:
                     h = dropout(h, self.dropout, gen)

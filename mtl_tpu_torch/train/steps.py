@@ -1,6 +1,13 @@
 """Training steps of the port (mtl_tpu/train/steps.py): feature
-preparation, the teacher-forced forward + loss, the first-order
-meta-transfer step and the evaluation step.
+preparation, the teacher-forced forward + loss, the joint step, the
+first-order meta-transfer step and the evaluation step.
+
+The joint step (:169-222; reference joint_trainer.py:195-271) takes the
+mean over the K task batches of their CE and one gradient of it, which is
+the reference's accumulation of grad(loss_k / K); the tasks' forwards run
+one after another and one backward runs over their sum. Then the optional
+global-norm clip and one update of the joint optimizer (Adam, or SGD with
+nesterov momentum).
 
 The meta step is the paper's algorithm (reference transient_trainer.py:
 155-255) in the flat first-order form of ``task_outer_grad_fo``
@@ -16,7 +23,7 @@ step) is not ported yet.
 
 Parameters are the model's own f32 ``nn.Parameter``s; the adapted weights
 enter the forward through ``torch.func.functional_call``. A step updates
-the parameters and the Adam state in place.
+the parameters and the optimizer state in place.
 """
 
 from __future__ import annotations
@@ -33,20 +40,20 @@ from ..data.vocab import PAD_ID
 from ..ops.frontend import log_spectrogram
 from ..ops.targets import make_teacher_forcing
 from .losses import ce_loss, ce_row_losses, masked_loss_guard
-from .optim import Adam, AdamState, global_norm
+from .optim import OptState, global_norm
 
 
 @dataclass
 class TrainState:
-    """(step, f32 params, outer Adam state) -- mtl_tpu/train/steps.py:53-61.
+    """(step, f32 params, optimizer state) -- mtl_tpu/train/steps.py:53-61.
     ``params`` are the model's own parameters, by name."""
 
     step: int
     params: Dict[str, torch.Tensor]
-    opt_state: AdamState
+    opt_state: OptState
 
 
-def init_train_state(model: torch.nn.Module, optimizer: Adam) -> TrainState:
+def init_train_state(model: torch.nn.Module, optimizer) -> TrainState:
     params = dict(model.named_parameters())
     return TrainState(0, params, optimizer.init(params))
 
@@ -106,8 +113,40 @@ def _clip_tree(grads: List[torch.Tensor], max_norm: float
     return torch._foreach_mul(grads, scale)
 
 
+def make_joint_step(model: torch.nn.Module, cfg: Config,
+                    optimizer) -> Callable:
+    """One joint iteration. ``step(state, batches, generator)``:
+    ``batches`` holds tensors with a leading task axis K. Returns (state,
+    mean loss, aux with the argmax ``hyp`` and ``gold`` [K, B, L])."""
+    forward = make_forward_fn(model, cfg)
+    clip, max_norm = cfg.train.clip, cfg.train.max_norm
+
+    def step(state: TrainState, batches: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None):
+        names = list(state.params)
+        params = [state.params[n] for n in names]
+        losses, auxes = [], []
+        for i in range(batches["targets"].shape[0]):
+            loss, aux = forward(None, {k: v[i] for k, v in batches.items()},
+                                generator, False)
+            losses.append(loss)
+            auxes.append(aux)
+        loss = torch.stack(losses).mean()
+        grads = list(torch.autograd.grad(loss, params))
+        if clip:
+            grads = _clip_tree(grads, max_norm)
+        optimizer.update(dict(zip(names, grads)), state.opt_state,
+                         state.params)
+        state.step += 1
+        return state, loss.detach(), {
+            "hyp": torch.stack([a["hyp"] for a in auxes]),
+            "gold": torch.stack([a["gold"] for a in auxes])}
+
+    return step
+
+
 def make_meta_step(model: torch.nn.Module, cfg: Config,
-                   outer_optimizer: Adam) -> Callable:
+                   outer_optimizer) -> Callable:
     """One first-order meta-transfer iteration. ``step(state, support,
     query, generator)``: ``support`` holds tensors with a leading task axis
     K, ``query`` one batch. Returns (state, metrics) with the metrics of

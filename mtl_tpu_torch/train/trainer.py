@@ -1,21 +1,25 @@
-"""The meta-transfer training loop on the host (port of the
-``TransientTrainer`` path of mtl_tpu/train/trainer.py:49-494; reference
-trainer/asr/transient_trainer.py).
+"""The training loops on the host (port of the ``TransientTrainer`` and
+``JointTrainer`` paths of mtl_tpu/train/trainer.py; reference
+trainer/asr/transient_trainer.py and joint_trainer.py).
 
-Per iteration: the next meta batch from a double-buffer thread, one
-first-order meta step on the device (train/steps.py), the train CER of the
-support hypotheses on the host, the reference's log lines letter for
-letter; every ``--evaluate-every`` iterations an evaluation of the valid
-sets, a checkpoint when the iteration is also a multiple of
-``--save-every``, the best model by the early-stop criterion, and the early
-stop itself.
+Per iteration: the next batch from a double-buffer thread, one step on the
+device (train/steps.py: the first-order meta step, or the joint step), the
+train CER of the (support) hypotheses on the host, the reference's log
+lines letter for letter; every ``--evaluate-every`` iterations an
+evaluation of the valid sets, a checkpoint when the iteration is also a
+multiple of ``--save-every``, the best model by the early-stop criterion,
+and the early stop itself. The two trainers differ only in their
+optimizer, step, batch and logged learning rate.
 
 The batch stream is the JAX package's: a trainer that builds its state
-itself first draws one meta batch (the JAX trainer's example batch for
+itself first draws one batch (the JAX trainer's example batch for
 ``init_train_state``), and only then starts the prefetch thread, so both
-packages train on the same draws for one seed. Mesh axes, several prefetch
-workers, the device CER, the discriminator heads and profiling are not
-ported yet.
+packages train on the same draws for one seed. ``--continue-from``
+restores the weights and, when the checkpoint's optimizer state has the
+structure of this trainer's optimizer, the step and that state too; else
+the weights alone, as the JAX trainers fall back to params. Mesh axes,
+several prefetch workers, the device CER, the discriminator heads,
+profiling and remat are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,9 +41,10 @@ from ..utils.checkpoint import load_checkpoint, load_train_state, \
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer_batch
 from ..utils.params import compute_num_params
-from .optim import make_meta_optimizers
+from .optim import (make_joint_optimizer, make_meta_optimizers,
+                    restore_opt_state)
 from .steps import (TrainState, batch_to_device, init_train_state,
-                    make_eval_step, make_meta_step)
+                    make_eval_step, make_joint_step, make_meta_step)
 
 
 def batch_cer(hyp_ids, gold_ids, vocab: Vocab):
@@ -135,6 +140,7 @@ def check_ported(cfg: Config) -> None:
          cfg.train.adversarial or cfg.train.multitask),
         ("--profile-dir", bool(cfg.train.profile_dir)),
         ("--second-order", cfg.train.second_order),
+        ("--remat/--remat-conv", cfg.model.remat or cfg.model.remat_conv),
     ) if on]
     if missing:
         raise ValueError(f"{', '.join(missing)}: not ported yet")
@@ -211,48 +217,41 @@ class TrainerBase:
         return avg_loss, avg_cer, final_losses, final_cers
 
 
-class TransientTrainer(TrainerBase):
-    """Meta-transfer trainer (transient_trainer.py:79-377)."""
+    # -- the loop shared by the trainers; the subclasses' hooks: ---------
+    # make_optimizer(), make_step(opt), fetch_fn(dataset) (draws one batch),
+    # run_step(step, state, batch, generator) -> (state, loss, hyp, gold),
+    # and the learning rate the TRAIN line prints, ``logged_lr``
 
-    def _build_state(self, outer_opt) -> TrainState:
+    def _build_state(self, opt) -> TrainState:
         """Seeded init, or the checkpoint of ``--continue-from``: its
-        weights and, from a training checkpoint, its step and Adam state
-        (a weights-only one restores the weights alone, as the JAX trainer
-        falls back to params)."""
+        weights, and its step and optimizer state when that has the
+        structure of ``opt``'s (mtl_tpu/train/trainer.py:603-626)."""
         cfg = self.cfg
         init_weights(self.model, torch.Generator().manual_seed(cfg.train.seed))
-        state = init_train_state(self.model, outer_opt)
+        state = init_train_state(self.model, opt)
         if cfg.continue_from:
             _, _, state_dict, _, _ = load_checkpoint(cfg.continue_from)
             self.model.load_state_dict(state_dict)
             saved = load_train_state(cfg.continue_from)
             if saved is not None:
-                state.step = saved["step"]
-                state.opt_state.count = saved["count"]
-                for name in state.params:
-                    state.opt_state.mu[name].copy_(saved["mu"][name])
-                    state.opt_state.nu[name].copy_(saved["nu"][name])
+                step = saved.pop("step")
+                if restore_opt_state(state.opt_state, saved):
+                    state.step = step
             log_print(f"RESTORED STATE from {cfg.continue_from}")
-        log_print("Parameters: {}(trainable), {}(non-trainable)".format(
-            *compute_num_params(self.model)))
         return state
 
     def train(self, train_dataset: SpectrogramDataset,
               valid_sets: Sequence[SpectrogramDataset], start_it: int = 0,
               num_it: int = 1000, state: Optional[TrainState] = None,
               last_metrics: Optional[dict] = None) -> TrainState:
-        cfg = self.cfg
-        _, outer_opt = make_meta_optimizers(cfg)
-        step_fn = make_meta_step(self.model, cfg, outer_opt)
-
-        def fetch():
-            return train_dataset.sample_meta_batch(cfg.train.k_train,
-                                                   cfg.train.k_valid)
-
+        opt = self.make_optimizer()
+        step_fn = self.make_step(opt)
+        fetch = self.fetch_fn(train_dataset)
         if state is None:
             fetch()  # the JAX trainer's init batch: keeps the stream aligned
-            state = self._build_state(outer_opt)
-        generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
+            state = self._build_state(opt)
+        generator = torch.Generator(self.device).manual_seed(
+            self.cfg.train.seed)
 
         # the double buffer starts after the initial draw: two threads
         # drawing from the dataset's RandomState would reorder the stream
@@ -276,10 +275,11 @@ class TransientTrainer(TrainerBase):
         failures = 0
         it = start_it
         while it < num_it:
-            # in-loop fault recovery (transient_trainer.py:364-377): a data
-            # error drops the batch, refetches and keeps `it`
+            # in-loop fault recovery (transient_trainer.py:364-377,
+            # joint_trainer.py:391-405): a data error drops the batch,
+            # refetches and keeps `it`
             try:
-                support, query = prefetch.get()
+                batch = prefetch.get()
             except Exception as e:
                 failures += 1
                 log_print(f"Error: {e!r}, fetching new data...")
@@ -288,26 +288,24 @@ class TransientTrainer(TrainerBase):
                 continue
             failures = 0
             start_time = time.time()
-            support = batch_to_device(support, self.device)
-            query = batch_to_device(query, self.device)
-            state, m = step_fn(state, support, query, generator)
-            outer_loss = float(m["outer_loss"])
+            state, loss, hyp, gold = self.run_step(step_fn, state, batch,
+                                                   generator)
+            loss = float(loss)
             if (it + 1) % max(cfg.train.train_cer_every, 1) == 0:
-                cer, nchar = batch_cer(m["support_hyp"].cpu().numpy(),
-                                       m["support_gold"].cpu().numpy(),
+                cer, nchar = batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
                                        self.vocab)
             else:
                 cer, nchar = 0, 1
             total_time += time.time() - start_time
-            last_sum_loss.append(outer_loss)
+            last_sum_loss.append(loss)
             last_sum_cer.append(cer)
             last_sum_char.append(max(nchar, 1))
 
             log_print(
                 "(Iteration {}) TRAIN LOSS:{:.4f} CER:{:.2f}% "
                 "LR:{:.7f} TOTAL TIME:{:.7f}".format(
-                    it + 1, outer_loss, cer * 100.0 / max(nchar, 1),
-                    cfg.train.meta_lr, total_time
+                    it + 1, loss, cer * 100.0 / max(nchar, 1),
+                    self.logged_lr, total_time
                 )
             )
             if (it + 1) % 1000 == 0:
@@ -346,3 +344,62 @@ class TransientTrainer(TrainerBase):
                     break
             it += 1
         return state
+
+
+class TransientTrainer(TrainerBase):
+    """Meta-transfer trainer (transient_trainer.py:79-377): the first-order
+    meta step, outer Adam at ``meta_lr``."""
+
+    def _build_state(self, opt) -> TrainState:
+        state = super()._build_state(opt)
+        log_print("Parameters: {}(trainable), {}(non-trainable)".format(
+            *compute_num_params(self.model)))
+        return state
+
+    @property
+    def logged_lr(self) -> float:
+        return self.cfg.train.meta_lr
+
+    def make_optimizer(self):
+        return make_meta_optimizers(self.cfg)[1]
+
+    def make_step(self, opt):
+        return make_meta_step(self.model, self.cfg, opt)
+
+    def fetch_fn(self, train_dataset: SpectrogramDataset):
+        cfg = self.cfg
+        return lambda: train_dataset.sample_meta_batch(cfg.train.k_train,
+                                                       cfg.train.k_valid)
+
+    def run_step(self, step_fn, state, batch, generator):
+        support, query = (batch_to_device(b, self.device) for b in batch)
+        state, m = step_fn(state, support, query, generator)
+        return state, m["outer_loss"], m["support_hyp"], m["support_gold"]
+
+
+class JointTrainer(TrainerBase):
+    """Iteration-based multi-task trainer (joint_trainer.py), also the
+    finetune path (finetune.py:199-200): the joint step, Adam at ``lr`` or
+    SGD with nesterov momentum (``--opt_name sgd``)."""
+
+    @property
+    def logged_lr(self) -> float:
+        return self.cfg.train.lr
+
+    def make_optimizer(self):
+        return make_joint_optimizer(self.cfg)
+
+    def make_step(self, opt):
+        return make_joint_step(self.model, self.cfg, opt)
+
+    def fetch_fn(self, train_dataset: SpectrogramDataset):
+        cfg = self.cfg
+        # the JAX trainer's draw: every task's k_train support batch and a
+        # query of one utterance, which it drops
+        return lambda: train_dataset.sample_meta_batch(cfg.train.k_train,
+                                                       1)[0]
+
+    def run_step(self, step_fn, state, batch, generator):
+        state, loss, aux = step_fn(state, batch_to_device(batch, self.device),
+                                   generator)
+        return state, loss, aux["hyp"], aux["gold"]

@@ -8,7 +8,8 @@ and the outer Adam state.
 
 Layout: ``<save_folder>/<name>/{step_N,best_model}/`` holding
 ``model.pt`` (the state_dict, which ``test_main`` loads), ``meta.json`` and,
-from training, ``train_state.pt`` ({step, count, mu, nu}).
+from training, ``train_state.pt``: the step and the optimizer's fields
+(Adam: count, mu, nu; SGD with momentum: trace; SGD without: none).
 """
 
 from __future__ import annotations
@@ -35,15 +36,16 @@ def save_checkpoint(cfg: Config, vocab: Vocab,
                     metrics: Optional[dict] = None,
                     best_model: bool = False, opt_state=None) -> str:
     """Writes the step directory (or ``best_model``); ``opt_state`` (an
-    ``AdamState``) makes it a training checkpoint that a resume continues
-    from."""
+    ``AdamState`` or ``SGDState``) makes it a training checkpoint that a
+    resume continues from."""
     tag = "best_model" if best_model else f"step_{step}"
     path = os.path.abspath(os.path.join(cfg.save_folder, cfg.name, tag))
     os.makedirs(path, exist_ok=True)
     torch.save(_cpu(state_dict), os.path.join(path, MODEL_FILE))
     if opt_state is not None:
-        torch.save({"step": int(step), "count": int(opt_state.count),
-                    "mu": _cpu(opt_state.mu), "nu": _cpu(opt_state.nu)},
+        fields = {k: _cpu(v) if isinstance(v, dict) else int(v)
+                  for k, v in opt_state.tensors().items()}
+        torch.save({"step": int(step), **fields},
                    os.path.join(path, TRAIN_STATE_FILE))
     meta = {
         "config": json.loads(cfg.to_json()),
@@ -73,8 +75,8 @@ def load_checkpoint(path: str) -> Tuple[Config, Vocab, dict, int, dict]:
 
 
 def load_train_state(path: str) -> Optional[dict]:
-    """{step, count, mu, nu} of a training checkpoint, on the CPU; None
-    for a weights-only checkpoint."""
+    """{step, and the optimizer's fields} of a training checkpoint, on the
+    CPU; None for a weights-only checkpoint."""
     file = os.path.join(path, TRAIN_STATE_FILE)
     if not os.path.exists(file):
         return None

@@ -12,7 +12,11 @@ radix, an odd FFT half, T = 1, a waveform short of its last frame), and
 both routes of the VGG blocks, which ``out_dtype`` chooses, the VGG
 stack's autograd Function on both routes, one flagship-width meta step
 with its launch counts, the beam's bank and the LM scorer (TF32 allowed
-globally) against the CPU, and the beam ``test_main``'s launches.
+globally) against the CPU, the beam ``test_main``'s launches, an LM
+training step (cuDNN's RNN backward, TF32 allowed globally) against the
+same step with TF32 off and against the CPU, the LM's second-order cell
+loop against the cuDNN forward, and one flagship-width joint step with its
+launch counts.
 Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
@@ -23,7 +27,9 @@ round to its neighbour: one bf16 ulp of the output, |d| <= 2^-7 |plain| +
 2^-10 (the absolute term for outputs near zero, where a neighbouring conv-1
 value moves the sum by about 1e-4). The beam at f32: equal bank tokens,
 lengths and word counts, raw scores (sums of f32 log-probabilities,
-summation order only) within 1e-4; LM scores within 1e-5.
+summation order only) within 1e-4; LM scores within 1e-5. LM training
+steps: losses 1e-5 relative, parameters after an SGD step at lr 20 within
+1e-5 * lr (f32, summation order only); the cell loop's outputs within 1e-5.
 """
 
 import numpy as np
@@ -444,3 +450,109 @@ def test_beam_test_main_launches_each_kernel_once_a_batch(dev, tmp_path,
     assert c["stft_logmag"] == batches and c["stft_logmag_direct"] == 0, c
     assert c["vgg_block1"] == c["vgg_block2"] == batches + switched, c
     assert c["vgg_block1_f32"] == c["vgg_block2_f32"] == 0, c
+
+
+def _lm_step_run(dev, tf32, monkeypatch):
+    """One LM SGD step at lm_parser's widths (LSTM 200/200 x 2, 2,000
+    words, batch 20, bptt 35, lr 20, clip 0.25) from seeded weights on
+    ``dev``: (loss, carry, params after)."""
+    from mtl_tpu_torch.lm.model import RNNLM, init_lm_weights
+    from mtl_tpu_torch.lm.train import make_lm_sgd_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32)
+    model = RNNLM("LSTM", 2000, 200, 200, 2, 0.0, False)
+    init_lm_weights(model, torch.Generator().manual_seed(5))
+    model.to(dev)
+    rng = np.random.RandomState(3)
+    data = rng.randint(0, 2000, (35, 20))
+    target = rng.randint(0, 2000, 35 * 20)
+    loss, carry = make_lm_sgd_step(model, 0.25)(data, target, 20.0, None,
+                                                model.init_carry(20))
+    return (float(loss), [t.cpu() for c in carry for t in c],
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def test_lm_training_step_runs_cudnn_backward_in_f32(dev, monkeypatch):
+    """An LM training step on the card with TF32 allowed globally equals
+    the step with TF32 off (the step holds itself to f32, backward
+    included) and the CPU's step; cuDNN's RNN backward runs, which it
+    refuses after a forward outside training mode."""
+    on = _lm_step_run(dev, True, monkeypatch)
+    assert torch.backends.cudnn.allow_tf32
+    off = _lm_step_run(dev, False, monkeypatch)
+    cpu = _lm_step_run(torch.device("cpu"), False, monkeypatch)
+    for other in (off, cpu):
+        assert abs(on[0] - other[0]) <= 1e-5 * abs(other[0])
+        for a, b in zip(on[1], other[1]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        for k, v in other[2].items():
+            torch.testing.assert_close(on[2][k], v, rtol=0, atol=1e-5 * 20)
+
+
+@pytest.mark.parametrize("rnn_type", ["LSTM", "GRU"])
+def test_lm_cell_loop_forward_equals_cudnn(dev, rnn_type):
+    """The second-order route (the explicit cell loop) and cuDNN's
+    recurrence give the same logits and carry on the card, at 200/200."""
+    from mtl_tpu_torch.lm.model import RNNLM, init_lm_weights
+
+    lib = RNNLM(rnn_type, 500, 200, 200, 2, 0.0, False)
+    init_lm_weights(lib, torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        for rnn in lib.rnns:
+            rnn.bias.uniform_(-0.1, 0.1)
+    loop = RNNLM(rnn_type, 500, 200, 200, 2, 0.0, False, cell_loop=True)
+    loop.load_state_dict(lib.state_dict())
+    tokens = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 500, (35, 20))).to(dev)
+    outs = []
+    for m in (lib.to(dev).train(), loop.to(dev).train()):
+        logits, carry = m(tokens)
+        outs.append([logits] + [t for c in carry for t in
+                                (c if isinstance(c, tuple) else [c])])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_flagship_joint_step_launches_the_kernels(dev, tmp_path):
+    """One bf16 joint step at the flagship width (3 tasks of 8
+    utterances, 800 frames): each task's forward runs the FFT STFT and both
+    tensor-core VGG kernels, the one backward the stack's recompute per
+    task; the loss is finite and the weights move."""
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.train.optim import Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step)
+
+    manifests, labels = make_synthetic_corpus(
+        str(tmp_path), num_tasks=3, utts_per_task=8, min_sec=4.0,
+        max_sec=7.9, seed=1)
+    vocab = Vocab.from_json(labels)
+    cfg = Config()
+    m = cfg.model
+    m.num_enc_layers, m.num_dec_layers, m.num_heads = 2, 4, 8
+    m.dim_inner, m.dropout = 512, 0.1
+    cfg.data.src_bucket_frames = (800,)
+    cfg.finalize()
+    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=0)
+    support, _ = ds.sample_meta_batch(8, 1)
+    model = build_model(cfg, len(vocab), dev)
+    init_weights(model, torch.Generator().manual_seed(0))
+    opt = Adam(1e-4)
+    state = init_train_state(model, opt)
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    native.reset_launch_counts()
+    state, loss, _ = make_joint_step(model, cfg, opt)(
+        state, batch_to_device(support, dev),
+        torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    c = native.launch_counts
+    assert c["vgg_block1"] == c["vgg_block2"] == c["vgg_stack_bwd"] == 3, c
+    assert c["stft_logmag"] == 3 and c["stft_logmag_direct"] == 0, c
+    assert torch.isfinite(loss)
+    moved = sum(int((state.params[k] != v).sum()) for k, v in before.items())
+    assert moved > 0.5 * sum(v.numel() for v in before.values())

@@ -87,6 +87,29 @@ def test_beam_and_lm_entry_points_raise_without_cuda(monkeypatch, entry,
         getattr(cli, fn)(argv)
 
 
+@pytest.mark.parametrize("entry,argv", [
+    ("asr.joint_train_main", []),
+    ("asr.finetune_main", ["--continue-from", "unused"]),
+    ("lm.main_main", []),
+    ("lm.main_joint_main", []),
+    ("lm.main_meta_transfer_main", ["--second-order"]),
+    ("lm.finetune_main", ["--load", "unused"]),
+])
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path,
+                                                  entry, argv):
+    """The joint/finetune trainers and the LM's training mains ask for
+    cuda too, and raise without it before they touch a file."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    module, fn = entry.split(".")
+    cli = importlib.import_module(f"mtl_tpu_torch.cli.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(cli, fn)(argv)
+    assert os.listdir(tmp_path) == []
+
+
 def test_vgg_stack_refuses_other_devices():
     """The stack's autograd Function launches or refuses like the blocks;
     it never runs the plain version on a non-CPU tensor."""

@@ -300,11 +300,3 @@ def test_lm_test_refuses_words_outside_the_lm(corpus, tmp_path,
     with pytest.raises(ValueError, match="not trained on"):
         port_cli.test_main(["--load", str(tmp_path / "ckpt"), "--test_path",
                             str(tmp_path / "new.txt"), "--device", "cpu"])
-
-
-@pytest.mark.parametrize("main", ["main_main", "main_joint_main",
-                                  "main_meta_transfer_main",
-                                  "finetune_main"])
-def test_lm_training_mains_are_refused(main):
-    with pytest.raises(ValueError, match="not ported yet"):
-        getattr(port_cli, main)([])
