@@ -91,7 +91,31 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
 15. checks one LM step of each kind at f32 (dropout 0) on the card with
    TF32 allowed globally against the CPU: loss within 1e-5 relative,
    params after the step within 1e-5 * lr;
-16. prints the kernels as one JSON line and, last, the result line.
+16. trains MAML at the flagship width through ``meta_train_main`` on
+   ``cuda`` (bf16, dropout 0.1) on the phase-9 corpus: 3 tasks of 8
+   support and 8 own-query utterances, 6 iterations with an evaluation and
+   a checkpoint every 3, then ``--num-meta-test 2``; every loss finite,
+   the Meta-test line printed; the counters zeroed before and read after:
+   the FFT STFT, both bf16 VGG kernels and the stack's backward at least
+   2K times a step, the direct STFT never; then one MAML step timed
+   (median after the first), its peak memory and a profiled busy share;
+17. the discriminator heads: ``joint_train_main --adversarial
+   --beta-decay`` for 6 iterations and ``meta_transfer_train_main
+   --multitask`` for 3 (each with its launch counts), a ``--continue-from``
+   of the joint run resuming at iteration 7 with the discriminator and
+   both optimizer states restored, ``test_main`` serving the disc-trained
+   checkpoint, one adversarial joint step timed and profiled;
+18. the epoch trainer: ``train_main`` on ``cuda`` over one task of the
+   phase-9 corpus (batch 8, 2 epochs, Noam Adam at --warmup 4000); every
+   Epoch and VALID loss finite, ``step_1``, ``step_2`` and ``best_model``
+   written, a resume from ``step_2`` running the third epoch; one epoch
+   step timed and profiled;
+19. one f32 step of each of those paths on the card against the CPU, as
+   phases 10 and 12 (a MAML step, an adversarial joint step, a multitask
+   meta step, a Noam epoch step): loss, the model's and the
+   discriminator's gradients, the params after the update; the f32 VGG
+   kernels, the stack's backward and the STFT must launch;
+20. prints the kernels as one JSON line and, last, the result line.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -764,12 +788,7 @@ def train(torch, dev, work):
     """Phase 9. Returns (launch counts of the main run, corpus dir, models
     dir)."""
     from mtl_tpu_torch.cli.asr import meta_transfer_train_main
-    from mtl_tpu_torch.config import build_parser, config_from_args
-    from mtl_tpu_torch.data.dataset import SpectrogramDataset
     from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
-    from mtl_tpu_torch.data.vocab import Vocab
-    from mtl_tpu_torch.models.transformer import build_model, init_weights
-    from mtl_tpu_torch.ops import native
     from mtl_tpu_torch.train.optim import make_meta_optimizers
     from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
                                            make_meta_step)
@@ -784,39 +803,22 @@ def train(torch, dev, work):
     # from it reads (phase 11 finetunes with nesterov SGD)
     argv = _asr_train_argv(dev, manifests, labels, models) + [
         "--opt_name", "sgd"]
-    buf = io.StringIO()
-    torch.cuda.synchronize()
-    native.reset_launch_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        state = meta_transfer_train_main(
-            argv + ["--epochs", str(TRAIN_STEPS), "--name", "chip_train"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(native.launch_counts)
-    out = buf.getvalue()
-    with open(os.path.join(work, "train.txt"), "w", encoding="utf-8") as f:
-        f.write(out)
-    lines = [ln for ln in out.splitlines() if "TRAIN LOSS" in ln]
-    for ln in lines + [ln for ln in out.splitlines() if "VALID" in ln]:
-        print(ln, flush=True)
-    losses = [float(re.search(r"TRAIN LOSS:(\S+)", ln).group(1))
-              for ln in lines]
-    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
-          f"train losses {losses}")
+    state, out, wall, counts = _run_cli(
+        torch, meta_transfer_train_main, argv + ["--epochs",
+                                                 str(TRAIN_STEPS)],
+        work, "chip_train")
+    _finite_losses(out, TRAIN_STEPS, "train run")
     check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
     for tag in ("step_3", "step_6", "best_model"):
         for name in ("model.pt", "train_state.pt", "meta.json"):
             check(os.path.exists(os.path.join(models, "chip_train", tag,
                                               name)), f"{tag}/{name}")
-    totals = [float(re.search(r"TOTAL TIME:(\S+)", ln).group(1))
-              for ln in lines]
-    per_it = sorted(b - a for a, b in zip(totals, totals[1:]))
+    per_it = _per_iteration(out)
     print(f"train run: {TRAIN_STEPS} meta steps (K {K_TASKS}, {K_SHOT} + "
           f"{K_SHOT} utterances, bf16) in {wall:.3f} s with 2 evaluations "
           f"and 3 checkpoints; TOTAL TIME per iteration after the first "
           f"(host clock, batch to device + step + train CER): median "
-          f"{per_it[len(per_it) // 2] * 1e3:.3f} ms", flush=True)
+          f"{per_it:.3f} ms", flush=True)
     print(f"launches in the train run: {counts}", flush=True)
     need = 2 * K_TASKS * TRAIN_STEPS
     check(all(counts[k] >= need for k in ("vgg_block1", "vgg_block2",
@@ -828,13 +830,13 @@ def train(torch, dev, work):
           f" the direct STFT never: {counts}")
 
     # resume from the last checkpoint: iterations 7 and 8
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        state = meta_transfer_train_main(argv + [
-            "--epochs", str(TRAIN_STEPS + 2), "--name", "chip_train_resume",
-            "--continue-from", os.path.join(models, "chip_train", "step_6")])
+    state, out, _, _ = _run_cli(
+        torch, meta_transfer_train_main, argv + [
+            "--epochs", str(TRAIN_STEPS + 2), "--continue-from",
+            os.path.join(models, "chip_train", "step_6")],
+        work, "chip_train_resume")
     its = [int(x) for x in re.findall(r"\(Iteration (\d+)\) TRAIN LOSS",
-                                      buf.getvalue())]
+                                      out)]
     check(its == [TRAIN_STEPS + 1, TRAIN_STEPS + 2]
           and state.opt_state.count == TRAIN_STEPS + 2,
           f"resume ran iterations {its}, Adam count {state.opt_state.count}")
@@ -842,37 +844,22 @@ def train(torch, dev, work):
           f"{state.opt_state.count}", flush=True)
 
     # one meta step, timed and profiled on device-side batches
-    cfg = config_from_args(build_parser("").parse_args(argv + [
-        "--name", "chip_train_timing"]))
-    with open(labels, encoding="utf-8") as f:
-        vocab = Vocab.from_labels(json.load(f))
-    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=SEED)
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_train_timing")
     batches = [[batch_to_device(b, dev) for b in ds.sample_meta_batch(
         K_SHOT, K_SHOT)] for _ in range(6)]
-    model = build_model(cfg, len(vocab), dev)
-    init_weights(model, torch.Generator().manual_seed(SEED))
     _, opt = make_meta_optimizers(cfg)
     state = init_train_state(model, opt)
     step = make_meta_step(model, cfg, opt)
     gen = torch.Generator(dev).manual_seed(SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     it = iter(batches)
-    ms = _time_steps(torch, lambda: float(
-        step(state, *next(it), gen)[1]["outer_loss"]), 5)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    steady = sorted(ms[1:])
-    print(f"meta step (flagship, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}, "
-          f"{batches[0][0]['audio'].shape[-1]} samples a row): "
-          + ", ".join(f"{v:.3f}" for v in ms) + f" ms; median after the "
-          f"first {(steady[1] + steady[2]) / 2:.3f} ms; peak memory "
-          f"{peak:.1f} MiB", flush=True)
-    wall_ms, busy, by_name, prof = _profile_once(
-        torch, lambda: float(step(state, *batches[5], gen)[1]["outer_loss"]))
+    wall_ms, by_name, prof = _time_and_profile(
+        torch, "meta step",
+        lambda: float(step(state, *next(it, batches[-1]), gen)[1][
+            "outer_loss"]),
+        f"flagship, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}, "
+        f"{batches[0][0]['audio'].shape[-1]} samples a row")
     events = prof.events()
-    print(f"profiled meta step: wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}; device ms by "
-          f"group: {_by_group(by_name)}", flush=True)
     for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         print(f"  top device op {t:9.3f} ms  {name[:110]}", flush=True)
     host_ops = [e for e in events if e.cpu_parent is None
@@ -901,7 +888,7 @@ def _asr_train_argv(dev, manifests, labels, models):
 def _parity_inputs(torch, corpus):
     """The f32 parity checks' inputs: (config at f32 with dropout 0, vocab,
     support of 2 tasks x 2 utterances at 400 frames, query of 2, weights
-    with nonzero conv biases)."""
+    with nonzero conv biases, MAML's queries: 2 tasks x 2, drawn last)."""
     from mtl_tpu_torch.config import build_parser, config_from_args
     from mtl_tpu_torch.data.dataset import SpectrogramDataset
     from mtl_tpu_torch.data.vocab import Vocab
@@ -925,7 +912,9 @@ def _parity_inputs(torch, corpus):
             conv.bias.copy_(torch.from_numpy(
                 rng.randn(conv.bias.numel()).astype(np.float32) * 0.1))
     weights = {k: v.clone() for k, v in ref.state_dict().items()}
-    return cfg, vocab, support, query, weights
+    own = [ds._collate(ds.sample_pairs(2, i), 400, 64) for i in (0, 1)]
+    queries = {k: np.stack([b[k] for b in own]) for k in own[0]}
+    return cfg, vocab, support, query, weights, queries
 
 
 def _step_parity(torch, dev, cfg, vocab, weights, run, opts, what):
@@ -948,7 +937,12 @@ def _step_parity(torch, dev, cfg, vocab, weights, run, opts, what):
             if d == dev and name == runs[-1][0]:
                 torch.cuda.synchronize()
                 native.reset_launch_counts()
-            out[f"{name}_loss"] = float(run(model, opt, d))
+            loss = run(model, opt, d)
+            # a run with a discriminator also returns its gradients (the
+            # grads run) or its params after its plain SGD step
+            loss, out[f"{name}_disc"] = (loss if isinstance(loss, tuple)
+                                         else (loss, None))
+            out[f"{name}_loss"] = float(loss)
             out[name] = opt.grads if name == "grads" else {
                 k: v.detach().cpu() for k, v in model.named_parameters()}
             if d == dev and name == runs[-1][0]:
@@ -970,6 +964,23 @@ def _step_parity(torch, dev, cfg, vocab, weights, run, opts, what):
         torch.testing.assert_close(card["grads"][k], g, rtol=1e-3,
                                    atol=1e-3 * scale)
     notes = []
+    if cpu["grads_disc"] is not None:
+        dg = cpu["grads_disc"]
+        dscale = max(float(g.abs().max()) for g in dg.values())
+        derr = max(float((card["grads_disc"][k] - g).abs().max())
+                   for k, g in dg.items())
+        for k, g in dg.items():
+            torch.testing.assert_close(card["grads_disc"][k], g, rtol=1e-3,
+                                       atol=1e-3 * dscale)
+        lr_disc = cfg.train.lr_disc
+        for name, _, _ in opts:
+            perr = max(float((card[f"{name}_disc"][k] - p).abs().max())
+                       for k, p in cpu[f"{name}_disc"].items())
+            check(perr <= lr_disc * 1e-3 * dscale + 1e-7,
+                  f"{what} discriminator after SGD differs by {perr}")
+        notes.append(f"discriminator grads max_abs_err {derr:.3e} of max "
+                     f"{dscale:.3e}, params after its SGD (lr {lr_disc}) "
+                     f"max_abs_err {perr:.3e}")
     for name, lr, _ in opts:
         perr, checked = 0.0, 0
         for k, p in cpu[name].items():
@@ -1010,7 +1021,7 @@ def train_parity(torch, dev, corpus):
     from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
                                            make_meta_step)
 
-    cfg, vocab, support, query, weights = _parity_inputs(torch, corpus)
+    cfg, vocab, support, query, weights, _ = _parity_inputs(torch, corpus)
     lr = cfg.train.meta_lr
 
     def run(model, opt, d):
@@ -1084,11 +1095,6 @@ def joint(torch, dev, work, corpus, meta_models):
     timed on device-side batches, its peak memory and one profiled step.
     Returns the launch counts of the joint run."""
     from mtl_tpu_torch.cli.asr import finetune_main, joint_train_main
-    from mtl_tpu_torch.config import build_parser, config_from_args
-    from mtl_tpu_torch.data.dataset import SpectrogramDataset
-    from mtl_tpu_torch.data.vocab import Vocab
-    from mtl_tpu_torch.models.transformer import build_model, init_weights
-    from mtl_tpu_torch.ops import native
     from mtl_tpu_torch.train.optim import SGDState, make_joint_optimizer
     from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
                                            make_joint_step)
@@ -1098,65 +1104,32 @@ def joint(torch, dev, work, corpus, meta_models):
     labels = os.path.join(corpus, "labels.json")
     models = os.path.join(work, "joint_models")
     argv = _asr_train_argv(dev, manifests, labels, models)
-    buf = io.StringIO()
-    torch.cuda.synchronize()
-    native.reset_launch_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        state = joint_train_main(argv + ["--epochs", str(JOINT_STEPS),
-                                         "--name", "chip_joint"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(native.launch_counts)
-    out = buf.getvalue()
-    with open(os.path.join(work, "joint.txt"), "w", encoding="utf-8") as f:
-        f.write(out)
-    lines = [ln for ln in out.splitlines() if "TRAIN LOSS" in ln]
-    for ln in lines + [ln for ln in out.splitlines() if "VALID" in ln]:
-        print(ln, flush=True)
-    losses = [float(re.search(r"TRAIN LOSS:(\S+)", ln).group(1))
-              for ln in lines]
-    check(len(losses) == JOINT_STEPS and all(map(math.isfinite, losses)),
-          f"joint losses {losses}")
+    state, out, wall, counts = _run_cli(
+        torch, joint_train_main, argv + ["--epochs", str(JOINT_STEPS)],
+        work, "chip_joint")
+    _finite_losses(out, JOINT_STEPS, "joint run")
     check(state.step == JOINT_STEPS, f"joint trained {state.step} steps")
     for tag in ("step_3", "step_6", "best_model"):
         for name in ("model.pt", "train_state.pt", "meta.json"):
             check(os.path.exists(os.path.join(models, "chip_joint", tag,
                                               name)), f"joint {tag}/{name}")
-    totals = [float(re.search(r"TOTAL TIME:(\S+)", ln).group(1))
-              for ln in lines]
-    per_it = sorted(b - a for a, b in zip(totals, totals[1:]))
     print(f"joint run: {JOINT_STEPS} joint steps (K {K_TASKS} x {K_SHOT} "
           f"utterances, bf16, Adam) in {wall:.3f} s with 2 evaluations and 3 "
           f"checkpoints; TOTAL TIME per iteration after the first (host "
           f"clock, batch to device + step + train CER): median "
-          f"{per_it[len(per_it) // 2] * 1e3:.3f} ms", flush=True)
-    print(f"launches in the joint run: {counts}", flush=True)
-    need = K_TASKS * JOINT_STEPS
-    check(all(counts[k] >= need for k in ("vgg_block1", "vgg_block2",
-                                          "vgg_stack_bwd", "stft_logmag"))
-          and counts["stft_logmag_direct"] == 0
-          and counts["vgg_block1_f32"] == counts["vgg_block2_f32"] == 0,
-          f"the joint run must launch the FFT STFT, each bf16 VGG kernel "
-          f"and the backward >= {need} times, the direct STFT and the f32 "
-          f"VGG kernels never: {counts}")
+          f"{_per_iteration(out):.3f} ms", flush=True)
+    _check_counts(counts, K_TASKS * JOINT_STEPS, "joint run")
 
     # finetune from the meta checkpoint: iterations 7-9 by nesterov SGD
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        state = finetune_main(_asr_train_argv(dev, manifests, labels,
-                                              models) + [
+    state, out, _, _ = _run_cli(
+        torch, finetune_main, argv + [
             "--epochs", str(TRAIN_STEPS + FINETUNE_STEPS), "--opt_name",
-            "sgd", "--name", "chip_finetune", "--continue-from",
-            os.path.join(meta_models, "chip_train", "step_6")])
-    out = buf.getvalue()
-    with open(os.path.join(work, "finetune.txt"), "w", encoding="utf-8") as f:
-        f.write(out)
-    lines = [ln for ln in out.splitlines() if "TRAIN LOSS" in ln]
+            "sgd", "--continue-from",
+            os.path.join(meta_models, "chip_train", "step_6")],
+        work, "chip_finetune")
     its = [int(x) for x in re.findall(r"\(Iteration (\d+)\) TRAIN LOSS",
                                       out)]
-    losses = [float(re.search(r"TRAIN LOSS:(\S+)", ln).group(1))
-              for ln in lines]
+    losses = [float(x) for x in re.findall(r"TRAIN LOSS:(\S+)", out)]
     check(its == list(range(TRAIN_STEPS + 1,
                             TRAIN_STEPS + FINETUNE_STEPS + 1))
           and all(map(math.isfinite, losses))
@@ -1166,42 +1139,25 @@ def joint(torch, dev, work, corpus, meta_models):
           and state.step == FINETUNE_STEPS,
           f"finetune ran iterations {its}, losses {losses}, step "
           f"{state.step}, state {type(state.opt_state).__name__}")
-    for ln in lines:
-        print(ln, flush=True)
     print(f"finetune from the meta checkpoint step_6: iterations {its} by "
           f"nesterov SGD, weights restored alone (the Adam state does not "
           f"fit SGD), step {state.step}", flush=True)
 
     # one joint step, timed and profiled on device-side batches
-    cfg = config_from_args(build_parser("").parse_args(argv + [
-        "--name", "chip_joint_timing"]))
-    with open(labels, encoding="utf-8") as f:
-        vocab = Vocab.from_labels(json.load(f))
-    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=SEED)
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_joint_timing")
     batches = [batch_to_device(ds.sample_meta_batch(K_SHOT, 1)[0], dev)
                for _ in range(6)]
-    model = build_model(cfg, len(vocab), dev)
-    init_weights(model, torch.Generator().manual_seed(SEED))
     opt = make_joint_optimizer(cfg)
     state = init_train_state(model, opt)
     step = make_joint_step(model, cfg, opt)
     gen = torch.Generator(dev).manual_seed(SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     it = iter(batches)
-    ms = _time_steps(torch, lambda: float(step(state, next(it), gen)[1]), 5)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    steady = sorted(ms[1:])
-    print(f"joint step (flagship, bf16, Adam, K {K_TASKS} x {K_SHOT}, "
-          f"{batches[0]['audio'].shape[-1]} samples a row): "
-          + ", ".join(f"{v:.3f}" for v in ms) + f" ms; median after the "
-          f"first {(steady[1] + steady[2]) / 2:.3f} ms; peak memory "
-          f"{peak:.1f} MiB", flush=True)
-    wall_ms, busy, by_name, _ = _profile_once(
-        torch, lambda: float(step(state, batches[5], gen)[1]))
-    print(f"profiled joint step: wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, busy share {busy / wall_ms:.4f}; device ms by "
-          f"group: {_by_group(by_name)}", flush=True)
+    _time_and_profile(
+        torch, "joint step",
+        lambda: float(step(state, next(it, batches[-1]), gen)[1]),
+        f"flagship, bf16, Adam, K {K_TASKS} x {K_SHOT}, "
+        f"{batches[0]['audio'].shape[-1]} samples a row")
     return counts
 
 
@@ -1213,7 +1169,7 @@ def joint_parity(torch, dev, corpus):
     from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
                                            make_joint_step)
 
-    cfg, vocab, support, _, weights = _parity_inputs(torch, corpus)
+    cfg, vocab, support, _, weights, _ = _parity_inputs(torch, corpus)
     lr = cfg.train.lr
 
     def run(model, opt, d):
@@ -1231,6 +1187,410 @@ def joint_parity(torch, dev, corpus):
                                        "vgg_stack_bwd")),
           f"the f32 joint step must run the f32 VGG kernels and the "
           f"backward: {counts}")
+    return counts
+
+
+
+def _run_cli(torch, main, argv, work, name):
+    """Runs a training entry point with the launch counters zeroed just
+    before and read just after; writes its output to ``<work>/<name>.txt``
+    and prints its TRAIN/VALID/Meta-test/Epoch lines. Returns (its
+    result, its output, wall seconds, launch counts)."""
+    from mtl_tpu_torch.ops import native
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv + ["--name", name])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(native.launch_counts)
+    out = buf.getvalue()
+    with open(os.path.join(work, f"{name}.txt"), "w", encoding="utf-8") as f:
+        f.write(out)
+    for ln in out.splitlines():
+        if ln.startswith(("(Iteration", "(Meta-test)", "(Epoch")):
+            print(f"{name}: {ln}", flush=True)
+    return result, out, wall, counts
+
+
+def _per_iteration(out):
+    """The median ms between successive TOTAL TIME stamps of a run's
+    TRAIN lines after the first (host clock: batch to device, step, train
+    CER)."""
+    totals = [float(x) for x in re.findall(r"TOTAL TIME:(\S+)", out)]
+    per_it = sorted(b - a for a, b in zip(totals, totals[1:]))
+    return per_it[len(per_it) // 2] * 1e3
+
+
+def _finite_losses(out, n, what):
+    """The TRAIN LOSS values of ``out``; there must be ``n``, all finite,
+    and every VALID loss finite too."""
+    losses = [float(x) for x in re.findall(r"TRAIN LOSS:(\S+)", out)]
+    valid = [float(x) for x in re.findall(r"VALID (?:SET \d+ )?LOSS:(\S+)",
+                                          out)]
+    check(len(losses) == n and all(map(math.isfinite, losses + valid))
+          and valid, f"{what}: losses {losses}, valid {valid}")
+    return losses
+
+
+def _check_counts(counts, need, what, forward=("vgg_block1", "vgg_block2",
+                                                "vgg_stack_bwd",
+                                                "stft_logmag")):
+    """Each kernel of ``forward`` launched at least ``need`` times, the
+    direct STFT and the f32 VGG kernels never (a bf16 run)."""
+    check(all(counts[k] >= need for k in forward)
+          and counts["stft_logmag_direct"] == 0
+          and counts["vgg_block1_f32"] == counts["vgg_block2_f32"] == 0,
+          f"{what} must launch {forward} >= {need} times each, the direct "
+          f"STFT and the f32 VGG kernels never: {counts}")
+    print(f"launches in the {what}: {counts}", flush=True)
+
+
+def _time_and_profile(torch, what, fn, n_batches_note):
+    """Times 5 calls of ``fn`` (host clock, each ended by a synchronize;
+    median after the first), the peak memory beside what was allocated
+    before the first call (earlier phases' garbage collected first), and
+    profiles a sixth."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_steps(torch, fn, 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    steady = sorted(ms[1:])
+    print(f"{what} ({n_batches_note}): " + ", ".join(f"{v:.3f}" for v in ms)
+          + f" ms; median after the first {(steady[1] + steady[2]) / 2:.3f} "
+          f"ms; peak memory {peak:.1f} MiB ({held:.1f} MiB allocated before "
+          f"the first step: weights, batches)", flush=True)
+    wall_ms, busy, by_name, prof = _profile_once(torch, fn)
+    print(f"profiled {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} "
+          f"ms, busy share {busy / wall_ms:.4f}; device ms by group: "
+          f"{_by_group(by_name)}", flush=True)
+    return wall_ms, by_name, prof
+
+
+def _train_corpus_setup(torch, dev, corpus, argv, name):
+    """(config, vocab, train set over the corpus's 3 tasks, seeded model
+    on ``dev``) at the flags of ``argv``."""
+    from mtl_tpu_torch.config import build_parser, config_from_args
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+
+    cfg = config_from_args(build_parser("").parse_args(argv + [
+        "--name", name]))
+    with open(os.path.join(corpus, "labels.json"), encoding="utf-8") as f:
+        vocab = Vocab.from_labels(json.load(f))
+    ds = SpectrogramDataset(vocab, cfg, cfg.data.train_manifest_list,
+                            is_train=True, seed=SEED)
+    model = build_model(cfg, len(vocab), dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    return cfg, vocab, ds, model
+
+
+MAML_STEPS, MULTITASK_STEPS, EPOCHS = 6, 3, 2
+
+
+def maml(torch, dev, work, corpus):
+    """Phase 16: MAML at the flagship width through ``meta_train_main`` on
+    cuda (bf16, dropout 0.1; 3 tasks of 8 support + 8 own-query
+    utterances, 6 iterations, an evaluation and a checkpoint every 3, then
+    ``--num-meta-test 2``), the counts zeroed before and read after: every
+    support and query forward runs the FFT STFT and both bf16 VGG kernels,
+    every backward the stack's recompute (each >= 2K a step); then one
+    MAML step timed and profiled. Returns the launch counts of the run."""
+    from mtl_tpu_torch.cli.asr import meta_train_main
+    from mtl_tpu_torch.train.optim import make_meta_optimizers
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    labels = os.path.join(corpus, "labels.json")
+    models = os.path.join(work, "maml_models")
+    argv = _asr_train_argv(dev, manifests, labels, models)
+    state, out, wall, counts = _run_cli(
+        torch, meta_train_main, argv + ["--epochs", str(MAML_STEPS),
+                                        "--num-meta-test", "2"],
+        work, "chip_maml")
+    _finite_losses(out, MAML_STEPS, "MAML run")
+    meta = re.findall(r"\(Meta-test\) trials=2 AVG LOSS:(\S+) AVG CER", out)
+    check("Meta Trainer is initialized" in out and len(meta) == 1
+          and math.isfinite(float(meta[0])) and state.step == MAML_STEPS,
+          f"MAML run: step {state.step}, Meta-test {meta}")
+    for tag in ("step_3", "step_6", "best_model"):
+        check(os.path.exists(os.path.join(models, "chip_maml", tag,
+                                          "train_state.pt")), f"maml {tag}")
+    print(f"MAML run: {MAML_STEPS} steps (K {K_TASKS}, {K_SHOT} + {K_SHOT} "
+          f"own-query utterances a task, bf16) with 2 evaluations, 3 "
+          f"checkpoints and 2 meta-test trials in {wall:.3f} s", flush=True)
+    _check_counts(counts, 2 * K_TASKS * MAML_STEPS, "MAML run")
+
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_maml_timing")
+    batches = [[batch_to_device(b, dev) for b in ds.sample_meta_batch(
+        K_SHOT, K_SHOT, per_task_query=True)] for _ in range(6)]
+    _, opt = make_meta_optimizers(cfg)
+    state = init_train_state(model, opt)
+    step = make_meta_step(model, cfg, opt, per_task_query=True)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    it = iter(batches)
+    _time_and_profile(
+        torch, "MAML step",
+        lambda: float(step(state, *next(it, batches[-1]), gen)[1][
+            "outer_loss"]),
+        f"flagship, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT} own-query, "
+        f"{batches[0][0]['audio'].shape[-1]} samples a row")
+    return counts
+
+
+def disc_heads(torch, dev, work, corpus):
+    """Phase 17: the discriminator heads at the flagship width on cuda:
+    ``joint_train_main --adversarial --beta-decay`` for 6 iterations and
+    ``meta_transfer_train_main --multitask`` for 3 (counts zeroed before
+    and read after each), a ``--continue-from`` of the joint run to
+    iterations 7-8 with its discriminator and both optimizer states
+    restored, ``test_main`` serving the disc-trained checkpoint; then one
+    adversarial joint step timed and profiled. Returns the launch counts
+    of the joint run."""
+    from mtl_tpu_torch.cli.asr import (joint_train_main,
+                                       meta_transfer_train_main, test_main)
+    from mtl_tpu_torch.models.discriminator import Discriminator
+    from mtl_tpu_torch.train.optim import make_joint_optimizer
+    from mtl_tpu_torch.train.steps import batch_to_device, init_train_state
+    from mtl_tpu_torch.train.steps_disc import (DiscTrainState,
+                                                init_disc_state,
+                                                make_joint_step_disc)
+
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    labels = os.path.join(corpus, "labels.json")
+    models = os.path.join(work, "disc_models")
+    argv = _asr_train_argv(dev, manifests, labels, models)
+    state, out, wall, counts = _run_cli(
+        torch, joint_train_main, argv + ["--epochs", str(JOINT_STEPS),
+                                         "--adversarial", "--beta-decay"],
+        work, "chip_adversarial")
+    _finite_losses(out, JOINT_STEPS, "adversarial joint run")
+    check(isinstance(state, DiscTrainState) and state.step == JOINT_STEPS
+          and state.disc_opt_state.count == JOINT_STEPS,
+          f"adversarial run: {type(state).__name__}, step {state.step}")
+    print(f"adversarial joint run: {JOINT_STEPS} steps in {wall:.3f} s",
+          flush=True)
+    _check_counts(counts, K_TASKS * JOINT_STEPS, "adversarial joint run")
+
+    mstate, out, wall, mcounts = _run_cli(
+        torch, meta_transfer_train_main, argv + [
+            "--epochs", str(MULTITASK_STEPS), "--multitask"], work,
+        "chip_multitask")
+    _finite_losses(out, MULTITASK_STEPS, "multitask meta run")
+    check(isinstance(mstate, DiscTrainState)
+          and mstate.disc_opt_state.count == MULTITASK_STEPS,
+          f"multitask run: {type(mstate).__name__}")
+    print(f"multitask meta run: {MULTITASK_STEPS} steps in {wall:.3f} s",
+          flush=True)
+    _check_counts(mcounts, 2 * K_TASKS * MULTITASK_STEPS,
+                  "multitask meta run",
+                  forward=("vgg_block1", "vgg_block2", "vgg_stack_bwd"))
+    check(mcounts["stft_logmag"] >= (K_TASKS + 1) * MULTITASK_STEPS,
+          f"multitask run STFT launches: {mcounts}")
+
+    ckpt = os.path.join(models, "chip_adversarial", "step_6")
+    rstate, out, _, _ = _run_cli(
+        torch, joint_train_main, argv + ["--epochs", str(JOINT_STEPS + 2),
+                                         "--continue-from", ckpt],
+        work, "chip_adversarial_resume")
+    its = [int(x) for x in re.findall(r"\(Iteration (\d+)\) TRAIN LOSS",
+                                      out)]
+    check(its == [JOINT_STEPS + 1, JOINT_STEPS + 2]
+          and isinstance(rstate, DiscTrainState)
+          and rstate.opt_state.count == JOINT_STEPS + 2
+          and rstate.disc_opt_state.count == JOINT_STEPS + 2,
+          f"adversarial resume ran {its}, counts "
+          f"{rstate.opt_state.count}/{rstate.disc_opt_state.count}")
+    print(f"adversarial resume from step_6: iterations {its}, model and "
+          f"discriminator Adam counts {rstate.opt_state.count} / "
+          f"{rstate.disc_opt_state.count}", flush=True)
+    res, out, wall, _ = _run_cli(
+        torch, test_main, ["--test-manifest-list", manifests[-1],
+                           "--labels-path", labels, "--continue-from",
+                           os.path.join(models, "chip_adversarial",
+                                        "best_model"),
+                           "--device", dev.type, "--k-test", "8"],
+        work, "chip_adversarial_test")
+    total = [ln for ln in out.splitlines() if ln.startswith("TOTAL CER")]
+    check(res["utterances"] == 16 and len(total) == 1,
+          f"test_main on the disc checkpoint: {res}")
+    print(f"test_main serves the disc-trained best_model: {total[0]}",
+          flush=True)
+
+    cfg, vocab, ds, model = _train_corpus_setup(
+        torch, dev, corpus, argv + ["--adversarial"], "chip_adv_timing")
+    batches = [batch_to_device(ds.sample_meta_batch(K_SHOT, 1)[0], dev)
+               for _ in range(6)]
+    disc = Discriminator(cfg.model.dim_model, cfg.train.num_class).to(dev)
+    opt = make_joint_optimizer(cfg)
+    state = init_disc_state(disc, cfg, init_train_state(model, opt))
+    step = make_joint_step_disc(model, disc, cfg, opt)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    it = iter(batches)
+    _time_and_profile(
+        torch, "adversarial joint step",
+        lambda: float(step(state, next(it, batches[-1]), gen, 0.5)[1]),
+        f"flagship, bf16, Adam, K {K_TASKS} x {K_SHOT}")
+    return counts
+
+
+def epochs(torch, dev, work, corpus):
+    """Phase 18: the epoch trainer through ``train_main`` on cuda at the
+    flagship width over one task of the phase-9 corpus (16 utterances,
+    batches of 8), 2 epochs, Noam Adam at --warmup 4000;
+    every Epoch and VALID loss finite, ``step_1``, ``step_2`` and
+    ``best_model`` written, a resume from ``step_2`` runs epoch 2 (the
+    third); then one epoch step timed. Returns the launch counts."""
+    from mtl_tpu_torch.cli.asr import train_main
+    from mtl_tpu_torch.data.dataset import read_manifest
+    from mtl_tpu_torch.train.optim import make_epoch_optimizer
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step)
+
+    manifest = os.path.join(corpus, "manifest_task0.csv")
+    labels = os.path.join(corpus, "labels.json")
+    models = os.path.join(work, "epoch_models")
+    argv = _asr_train_argv(dev, [manifest], labels, models)
+    argv[argv.index("--valid-manifest-list") + 1] = os.path.join(
+        corpus, "manifest_task2.csv")
+    argv += ["--batch-size", str(K_SHOT), "--warmup", "4000"]
+    per_epoch = -(-len(read_manifest(manifest)) // K_SHOT)
+    state, out, wall, counts = _run_cli(
+        torch, train_main, argv + ["--epochs", str(EPOCHS)], work,
+        "chip_epoch")
+    losses = [float(x) for x in re.findall(r"\(Epoch \d+\) TRAIN LOSS:(\S+)",
+                                           out)]
+    valid = [float(x) for x in re.findall(r"AVG VALID LOSS:(\S+)", out)]
+    check(len(losses) == len(valid) == EPOCHS
+          and all(map(math.isfinite, losses + valid))
+          and state.step == per_epoch * EPOCHS
+          and state.opt_state.schedule_count == per_epoch * EPOCHS,
+          f"epoch run: losses {losses}, valid {valid}, step {state.step}")
+    for tag in ("step_1", "step_2", "best_model"):
+        check(os.path.exists(os.path.join(models, "chip_epoch", tag,
+                                          "train_state.pt")), f"epoch {tag}")
+    print(f"epoch run: {EPOCHS} epochs of {per_epoch} batches of {K_SHOT} "
+          f"(Noam Adam, warmup 4000) in {wall:.3f} s", flush=True)
+    _check_counts(counts, per_epoch * EPOCHS, "epoch run")
+    rstate, out, _, _ = _run_cli(
+        torch, train_main, argv + ["--epochs", str(EPOCHS + 1),
+                                   "--continue-from", os.path.join(
+                                       models, "chip_epoch", "step_2")],
+        work, "chip_epoch_resume")
+    check(re.findall(r"\(Epoch (\d+)\) TRAIN", out) == [str(EPOCHS)]
+          and rstate.opt_state.schedule_count == per_epoch * (EPOCHS + 1),
+          f"epoch resume: {out[-300:]}")
+    print(f"epoch resume from step_2: epoch {EPOCHS} ran, Noam count "
+          f"{rstate.opt_state.schedule_count}", flush=True)
+
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_epoch_timing")
+    batches = [batch_to_device({k: v[None] for k, v in b.items()}, dev)
+               for b in ds.iter_batches(K_SHOT)]
+    opt = make_epoch_optimizer(cfg)
+    state = init_train_state(model, opt)
+    step = make_joint_step(model, cfg, opt)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    k = iter(range(100))
+    _time_and_profile(
+        torch, "epoch step",
+        lambda: float(step(state, batches[next(k) % len(batches)], gen)[1]),
+        f"flagship, bf16, Noam Adam, batch {K_SHOT}")
+    return counts
+
+
+def maml_disc_epoch_parity(torch, dev, corpus):
+    """Phase 19: one f32 step of phases 16-18's paths on the card (kernels)
+    against the CPU (plain versions) from the same weights and batches, as
+    phases 10 and 12: a MAML step (2 tasks with their own queries), an
+    adversarial joint step and a multitask meta step (the discriminator's
+    gradients read out and its params after plain SGD, ``--opt_name
+    sgd``), a Noam epoch step (one task's batch). Returns the card runs'
+    launch counts."""
+    from mtl_tpu_torch.models.discriminator import (Discriminator,
+                                                    init_discriminator)
+    from mtl_tpu_torch.train.optim import SGD, Adam, make_epoch_optimizer
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step, make_meta_step)
+    from mtl_tpu_torch.train.steps_disc import DiscHead, init_disc_state
+
+    cfg, vocab, support, query, weights, queries = _parity_inputs(torch,
+                                                                  corpus)
+    cfg.train.opt_name, cfg.train.lr_disc = "sgd", 1e-4
+    disc0 = Discriminator(cfg.model.dim_model, cfg.train.num_class)
+    init_discriminator(disc0, torch.Generator().manual_seed(SEED + 3))
+    dweights = {k: v.clone() for k, v in disc0.state_dict().items()}
+    lr, meta_lr = cfg.train.lr, cfg.train.meta_lr
+
+    def disc_run(kind):
+        def run(model, opt, d):
+            cfg.train.adversarial = kind == "adversarial"
+            cfg.train.multitask = kind == "multitask"
+            disc = Discriminator(cfg.model.dim_model,
+                                 cfg.train.num_class).to(d)
+            state = init_disc_state(disc, cfg, init_train_state(model, opt))
+            disc.load_state_dict(dweights)
+            head = DiscHead(disc, cfg)
+            if isinstance(opt, _Recorder):
+                head.optimizer = _Recorder()
+            sup = batch_to_device(support, d)
+            if kind == "adversarial":
+                loss = make_joint_step(model, cfg, opt, head=head)(
+                    state, sup, None, 0.5)[1]
+            else:
+                loss = make_meta_step(model, cfg, opt, head=head)(
+                    state, sup, batch_to_device(query, d))[1]["outer_loss"]
+            disc_out = (head.optimizer.grads
+                        if isinstance(head.optimizer, _Recorder) else
+                        {k: v.detach().cpu()
+                         for k, v in disc.state_dict().items()})
+            return loss, disc_out
+        return run
+
+    def maml_run(model, opt, d):
+        state = init_train_state(model, opt)
+        return make_meta_step(model, cfg, opt, per_task_query=True)(
+            state, batch_to_device(support, d),
+            batch_to_device(queries, d))[1]["outer_loss"]
+
+    def epoch_run(model, opt, d):
+        state = init_train_state(model, opt)
+        return make_joint_step(model, cfg, opt)(
+            state, {k: v[:1] for k, v in batch_to_device(support,
+                                                         d).items()})[1]
+
+    noam_lr = make_epoch_optimizer(cfg).schedule(0)
+    counts = {}
+    for what, run, opts in (
+            ("maml", maml_run, (("adam", meta_lr, lambda: Adam(meta_lr)),)),
+            ("adversarial joint", disc_run("adversarial"),
+             (("sgd", lr, lambda: SGD(lr, cfg.train.momentum,
+                                      nesterov=True)),)),
+            ("multitask meta", disc_run("multitask"),
+             (("adam", meta_lr, lambda: Adam(meta_lr)),)),
+            ("noam epoch", epoch_run,
+             (("noam", noam_lr, lambda: make_epoch_optimizer(cfg)),))):
+        counts[what] = _step_parity(torch, dev, cfg, vocab, weights, run,
+                                    opts, what)
+        print(f"launches in the f32 {what} parity run: {counts[what]}",
+              flush=True)
+        check(all(counts[what][k] >= 1 for k in (
+            "vgg_block1_f32", "vgg_block2_f32", "vgg_stack_bwd",
+            "stft_logmag")),
+              f"the f32 {what} step must run the f32 VGG kernels, the "
+              f"backward and the STFT: {counts[what]}")
     return counts
 
 
@@ -1634,6 +1994,16 @@ def main():
     lm_parity(torch, dev, lm_tasks)
     print(f"LM training phases {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 16. MAML; 17. the discriminator heads; 18. the epoch trainer;
+    # 19. their f32 steps against the CPU
+    t0 = time.perf_counter()
+    maml(torch, dev, WORK, train_corpus)
+    disc_heads(torch, dev, WORK, train_corpus)
+    epochs(torch, dev, WORK, train_corpus)
+    maml_disc_epoch_parity(torch, dev, train_corpus)
+    print(f"MAML, discriminator and epoch phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the STFT on the served path, the f32 VGG kernels on the
     # f32 parity path
@@ -1645,7 +2015,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 16. results
+    # 20. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

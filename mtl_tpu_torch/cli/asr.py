@@ -1,16 +1,24 @@
 """ASR CLI entry points of the port (mtl_tpu/cli/asr.py parity).
 
 * ``meta_transfer_train_main`` — meta_transfer_train.py: the first-order
-  meta-transfer trainer (``TransientTrainer``), console script
+  meta-transfer trainer (``TransientTrainer``), then with
+  ``--num-meta-test N`` meta-test at the final weights, console script
   ``mtl-torch-meta-transfer-train``;
+* ``meta_train_main`` — the same with MAML's per-task queries
+  (``MetaTrainer``; the JAX package gives it no console script either);
 * ``joint_train_main`` — joint_train.py: the joint trainer
   (``JointTrainer``: Adam, or ``--opt_name sgd``), console script
   ``mtl-torch-joint-train``;
+* ``train_main`` — train.py: the epoch trainer (``EpochTrainer``, Noam
+  Adam), console script ``mtl-torch-train``;
 * ``finetune_main`` — finetune.py: the joint trainer from the
   ``--continue-from`` checkpoint (meta or joint), console script
   ``mtl-torch-finetune``. As in the JAX package, a resumed run takes its
   model and training settings from the checkpoint's config, with this
   invocation's manifests, iteration count, name and device;
+* the trainers take the adversarial or multitask discriminator head with
+  ``--adversarial`` / ``--multitask`` (``--beta-decay``, ``--lr-disc``,
+  ``--num-class``);
 * ``test_main`` — test.py: greedy or beam decode (``--beam-search``,
   optionally with LM shallow fusion, ``--lm-rescoring --lm-path``) of the
   test manifests from a port checkpoint, CER/WER + EN/ZH CER report.
@@ -28,10 +36,12 @@ from ..data.vocab import post_process
 from ..decode.beam import beam_search_grouped
 from ..decode.greedy import greedy_search
 from ..lm.fusion import LMScorer
+from ..models.discriminator import Discriminator
 from ..models.subsampler import subsampled_length
 from ..models.transformer import build_model
 from ..train.steps import prepare_features
-from ..train.trainer import JointTrainer, TransientTrainer
+from ..train.trainer import (EpochTrainer, JointTrainer, MetaTrainer,
+                             TransientTrainer, meta_evaluate)
 from ..utils.checkpoint import load_checkpoint
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer, calculate_cer_en_zh, calculate_wer
@@ -53,32 +63,66 @@ def _prepare(args):
     return cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics
 
 
-def meta_transfer_train_main(argv=None):
+def _discriminator(cfg, device):
+    """The discriminator of ``--adversarial`` / ``--multitask``, else None
+    (joint_train.py:115-122)."""
+    if not (cfg.train.adversarial or cfg.train.multitask):
+        return None
+    return Discriminator(cfg.model.dim_model, cfg.train.num_class).to(device)
+
+
+def meta_transfer_train_main(argv=None, trainer_cls=TransientTrainer):
     """meta_transfer_train.py parity (mtl_tpu/cli/asr.py:50-75): builds
     the vocab, datasets and model (from the checkpoint's config with
-    ``--continue-from``) and runs the first-order meta-transfer trainer on
-    ``--device``. Returns the final ``TrainState``."""
+    ``--continue-from``), runs the first-order meta-transfer trainer (or
+    ``trainer_cls``) on ``--device``, then ``--num-meta-test`` trials of
+    meta-test at the final weights. Returns the final ``TrainState``."""
     parser = build_parser("Transformer ASR meta training (PyTorch port)")
     args = parser.parse_args(argv)
-    if args.num_meta_test:
-        raise ValueError("--num-meta-test is not ported yet")
     cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics = \
         _prepare(args)
-    trainer = TransientTrainer(model, cfg, vocab, device)
-    log_print("Transient Trainer is initialized")
-    return trainer.train(train_ds, valid_sets, start_it=start_it,
-                         num_it=cfg.train.epochs, last_metrics=metrics)
+    trainer = trainer_cls(model, cfg, vocab, device,
+                          _discriminator(cfg, device))
+    log_print("Transient Trainer is initialized"
+              if trainer_cls is TransientTrainer
+              else "Meta Trainer is initialized")
+    state = trainer.train(train_ds, valid_sets, start_it=start_it,
+                          num_it=cfg.train.epochs, last_metrics=metrics)
+    if args.num_meta_test and valid_sets:
+        meta_evaluate(trainer, state.params, train_ds, valid_sets,
+                      num_meta_test=args.num_meta_test)
+    return state
+
+
+def meta_train_main(argv=None):
+    """MAML (mtl_tpu/cli/asr.py:78; reference meta_trainer.py): the meta
+    trainer with every task's own query batch."""
+    return meta_transfer_train_main(argv, trainer_cls=MetaTrainer)
 
 
 def joint_train_main(argv=None):
     """joint_train.py parity (mtl_tpu/cli/asr.py:84-97): the joint trainer
-    on ``--device``. Returns the final ``TrainState``."""
+    on ``--device``, with the discriminator head when asked. Returns the
+    final ``TrainState``."""
     parser = build_parser("Transformer ASR joint training (PyTorch port)")
     cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics = \
         _prepare(parser.parse_args(argv))
-    trainer = JointTrainer(model, cfg, vocab, device)
+    trainer = JointTrainer(model, cfg, vocab, device,
+                           _discriminator(cfg, device))
     return trainer.train(train_ds, valid_sets, start_it=start_it,
                          num_it=cfg.train.epochs, last_metrics=metrics)
+
+
+def train_main(argv=None):
+    """train.py parity (mtl_tpu/cli/asr.py:100-109): the epoch trainer on
+    ``--device``; ``--continue-from`` a ``step_N`` checkpoint runs epochs
+    N, N + 1, .... Returns the final ``TrainState``."""
+    parser = build_parser("Transformer ASR epoch training (PyTorch port)")
+    cfg, vocab, train_ds, valid_sets, model, device, start_epoch, _ = \
+        _prepare(parser.parse_args(argv))
+    trainer = EpochTrainer(model, cfg, vocab, device)
+    return trainer.train(train_ds, valid_sets, start_epoch=start_epoch,
+                         num_epochs=cfg.train.epochs)
 
 
 def finetune_main(argv=None):

@@ -210,46 +210,60 @@ class SpectrogramDataset:
         return [self.get_utterance(manifest_id, int(i)) for i in chosen]
 
     def sample_meta_batch(self, k_train: int, k_valid: int,
-                          query_manifest_id: int = -1):
+                          query_manifest_id: int = -1,
+                          per_task_query: bool = False):
         """One meta iteration's data (mtl_tpu/data/dataset.py:276-322):
         support batches of k_train draws from every manifest, stacked
-        [K, B, ...], and the query batch of k_valid draws from the last
-        manifest (the code-switched target, transient_trainer.py:168). All
-        share one (frames, target) bucket so that the tasks stack."""
+        [K, B, ...], and the query: k_valid draws from the last manifest
+        (the code-switched target, transient_trainer.py:168), or with
+        ``per_task_query`` (MAML, meta_trainer.py:244) k_valid draws from
+        every manifest, stacked [K, B, ...], drawn after all the support
+        draws. All share one (frames, target) bucket so that the tasks
+        stack."""
         num_tasks = len(self.ids_list)
         support_pairs = [self.sample_pairs(k_train, m)
                          for m in range(num_tasks)]
-        query_pairs = self.sample_pairs(k_valid,
-                                        query_manifest_id % num_tasks)
+        if per_task_query:
+            query_pairs = [self.sample_pairs(k_valid, m)
+                           for m in range(num_tasks)]
+        else:
+            query_pairs = [self.sample_pairs(k_valid,
+                                             query_manifest_id % num_tasks)]
         hop = self.cfg.audio.hop_length
-        all_pairs = [p for task in support_pairs for p in task] + query_pairs
+        all_pairs = [p for task in support_pairs + query_pairs for p in task]
         max_samples = (self.cfg.model.src_max_len - 1) * hop
         max_frames = max(1 + min(len(w), max_samples) // hop
                          for w, _ in all_pairs)
         max_tgt = max(max(1, len(t)) for _, t in all_pairs)
         bucket_t = pick_bucket(max_frames, self.cfg.data.src_bucket_frames)
         bucket_l = pick_bucket(max_tgt, self.cfg.data.tgt_bucket_len)
-        support = [self._collate(p, bucket_t, bucket_l)
-                   for p in support_pairs]
-        support = {k: np.stack([b[k] for b in support]) for k in support[0]}
-        return support, self._collate(query_pairs, bucket_t, bucket_l)
+
+        def stack(groups):
+            batches = [self._collate(p, bucket_t, bucket_l) for p in groups]
+            return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+        query = stack(query_pairs)
+        if not per_task_query:
+            query = {k: v[0] for k, v in query.items()}
+        return stack(support_pairs), query
 
     def iter_batches(
         self, batch_size: int, shuffle: bool = True,
         force_frames: Optional[int] = None, force_tgt: Optional[int] = None,
         drop_last: bool = False, with_valid_count: bool = False,
-        rng: Optional[np.random.RandomState] = None,
     ):
         """Epoch iterator of static-shape batches.
 
         The final ragged batch is padded to ``batch_size`` by repeating
         leading utterances so shapes stay static; with ``with_valid_count``
         each yield is ``(batch, num_valid)`` so metric consumers can trim
-        the duplicated rows. ``shuffle`` draws the order from ``rng``."""
+        the duplicated rows. ``shuffle`` draws the order from the
+        dataset's RandomState, so that each epoch sees a new order
+        (mtl_tpu/data/dataset.py:339-341)."""
         n = len(self)
         order = np.arange(n)
         if shuffle:
-            (rng or np.random.RandomState(0)).shuffle(order)
+            self.rng.shuffle(order)
         for start in range(0, n, batch_size):
             idx = order[start:start + batch_size]
             num_valid = len(idx)

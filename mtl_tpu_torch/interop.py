@@ -23,6 +23,16 @@ can so continue in the port and back. The ``trace`` of optax's
 ``TraceState`` (``optax.sgd`` with momentum) maps the same way onto the
 port's ``SGDState``.
 
+The epoch trainer's Noam Adam is optax's chain (``ScaleByAdamState``,
+``ScaleByScheduleState``, ``EmptyState``): its ``mu``/``nu`` map as Adam's,
+the Adam count and the schedule's count onto ``NoamState.count`` and
+``schedule_count`` (``noam_state_from_optax`` / ``noam_state_to_optax``).
+
+The discriminator (mtl_tpu/models/discriminator.py, one ``Dense_0``) maps
+its kernel [d_model, C] transposed onto ``linear.weight`` [C, d_model]
+and its bias onto ``linear.bias`` (``disc_params_to_torch`` /
+``torch_to_flax_disc_params``); its optimizer state maps the same way.
+
 The word-level LM (mtl_tpu/lm/model.py ``RNNLM``) maps by its own rules
 (``lm_params_to_torch`` / ``torch_to_flax_lm_params``): the flax cells keep
 one Dense per gate, kernels [in, out]; the port stacks them in torch's gate
@@ -48,7 +58,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .train.optim import AdamState, SGDState
+from .train.optim import AdamState, NoamState, SGDState
 
 
 def _flatten(tree, prefix=()):
@@ -135,6 +145,44 @@ def sgd_state_to_optax(state: SGDState):
     """The port's ``SGDState`` -> the ``trace`` tree of optax's
     ``TraceState`` in the Flax param layout."""
     return torch_to_flax_params(state.trace)
+
+
+def noam_state_from_optax(opt_state) -> NoamState:
+    """optax ``noam_adam``'s state (``ScaleByAdamState``,
+    ``ScaleByScheduleState``, ``EmptyState``) -> the port's
+    ``NoamState``."""
+    adam, schedule = opt_state[0], opt_state[1]
+    return NoamState(int(np.asarray(adam.count)),
+                     flax_params_to_torch(adam.mu),
+                     flax_params_to_torch(adam.nu),
+                     int(np.asarray(schedule.count)))
+
+
+def noam_state_to_optax(state: NoamState):
+    """The port's ``NoamState`` -> (mu tree, nu tree, Adam count, schedule
+    count), the fields of optax's ``noam_adam`` state in the Flax param
+    layout, counts as int32."""
+    return (*adam_state_to_optax(state),
+            np.asarray(state.schedule_count, np.int32))
+
+
+def disc_params_to_torch(params) -> Dict[str, torch.Tensor]:
+    """Flax ``Discriminator`` params (or a param-shaped optimizer tree) ->
+    the port's ``Discriminator`` state_dict (f32)."""
+    dense = params.get("params", params)["Dense_0"]
+    return {"linear.weight": torch.from_numpy(np.array(
+                np.asarray(dense["kernel"], np.float32).T, order="C")),
+            "linear.bias": torch.from_numpy(np.array(
+                np.asarray(dense["bias"], np.float32)))}
+
+
+def torch_to_flax_disc_params(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The port's ``Discriminator`` state_dict -> Flax ``{"params": ...}``
+    tree of float32 numpy."""
+    a = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    return {"params": {"Dense_0": {
+        "kernel": np.ascontiguousarray(a["linear.weight"].T),
+        "bias": a["linear.bias"]}}}
 
 
 # flax cell -> (input-side Dense names, hidden-side Dense names, the Dense

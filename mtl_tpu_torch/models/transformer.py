@@ -2,7 +2,9 @@
 reference models/asr/transformer.py:14-240).
 
 conv subsampler -> encoder -> decoder. ``forward`` is the teacher-forced
-pass of training (mtl_tpu/models/transformer.py:101-111); decoding runs
+pass of training (mtl_tpu/models/transformer.py:101-111), with the encoder
+output beside the logits for the discriminator heads
+(``forward_with_encoder``, :113); decoding runs
 ``prepare_decode`` (encoder output + cross-attention K/V per decoder layer),
 ``init_cache`` and ``decode_step``. ``serving_copy`` casts the linear
 weights to the compute dtype once, for decoding. Construction from a
@@ -57,16 +59,25 @@ class ASRTransformer(nn.Module):
 
     def forward(self, features: torch.Tensor, input_lengths: torch.Tensor,
                 seq_in: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_encoder: bool = False):
         """Teacher-forced logits B x L x V (f32). ``deterministic=False``
-        applies dropout, drawn from ``generator``."""
+        applies dropout, drawn from ``generator``. ``return_encoder``
+        returns (logits, encoder output [B, T', d_model]), the
+        discriminator heads' input (``forward_with_encoder``)."""
         gen = None if deterministic else generator
         if gen is None and not deterministic and self.dropout > 0:
             raise ValueError("dropout needs a generator when not "
                              "deterministic")
         enc = self.encode(features, input_lengths, gen)
-        return self.decoder(seq_in, enc, input_lengths, gen)
+        logits = self.decoder(seq_in, enc, input_lengths, gen)
+        return (logits, enc) if return_encoder else logits
+
+    def forward_with_encoder(self, features, input_lengths, seq_in,
+                             deterministic: bool = True, generator=None):
+        """(logits, encoder output) (mtl_tpu/models/transformer.py:113)."""
+        return self(features, input_lengths, seq_in, deterministic, generator,
+                    return_encoder=True)
 
     def prepare_decode(self, features: torch.Tensor,
                        input_lengths: torch.Tensor

@@ -6,7 +6,10 @@ mtl_tpu/train/losses.py:26-77; reference utils/metrics.py:68-126).
 * label smoothing: ``one_hot * (1 - eps) + (1 - one_hot) * eps / C``, mean
   over non-pad tokens;
 * num_correct: argmax matches over non-pad positions;
-* ``masked_loss_guard``: non-finite losses become 0.
+* ``masked_loss_guard``: non-finite losses become 0;
+* the discriminator heads' losses (:106-116): the discriminator's CE to a
+  constant accent id and the encoder's MSE of its logits to uniform (the
+  multitask head takes the first alone).
 
 The CTC loss is not ported yet.
 """
@@ -54,3 +57,16 @@ def ce_loss(logits: torch.Tensor, gold: torch.Tensor, pad_id: int = PAD_ID,
 def masked_loss_guard(loss: torch.Tensor) -> torch.Tensor:
     """Non-finite losses become 0 (mtl_tpu/train/losses.py:73-77)."""
     return torch.where(torch.isfinite(loss), loss, 0.0)
+
+
+def adversarial_losses(disc_logits: torch.Tensor, accent_id: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the discriminator's CE against the constant ``accent_id``, the
+    encoder's MSE of the logits to 1 / num_class)
+    (mtl_tpu/train/losses.py:106-116)."""
+    c = disc_logits.shape[-1]
+    log_probs = F.log_softmax(disc_logits, dim=-1)
+    disc_loss = -log_probs[:, accent_id].mean()
+    enc_loss = ((disc_logits - 1.0 / c) ** 2).mean()
+    return disc_loss, enc_loss
+

@@ -25,13 +25,25 @@ optax's ``TraceState`` (the trace by parameter name):
 and without momentum (optax's ``EmptyState``) it holds nothing. A state
 restores only into an optimizer of the same structure, as an orbax
 restore into a typed target does (``restore_opt_state``).
+
+``NoamAdam`` is the epoch trainer's optimizer (:21-47, :70-77; reference
+utils/optimizer.py:3-32), optax's chain of ``scale_by_adam(0.9, 0.98,
+eps 1e-9)``, ``scale_by_schedule`` and ``scale(-1)``: Adam's update at
+the rate
+
+    max(min_lr, k_lr * d^-0.5 * min(s^-0.5, s * warmup^-1.5)),  s = n + 1
+
+with ``n`` the schedule's own count before the step. Its state is Adam's
+fields plus that count (``NoamState``), so it restores neither into plain
+Adam nor the reverse.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -57,19 +69,35 @@ class SGDState:
         return {} if self.trace is None else {"trace": self.trace}
 
 
-OptState = Union[AdamState, SGDState]
+@dataclass
+class NoamState(AdamState):
+    """Adam's fields and the schedule's count (optax's
+    ``ScaleByScheduleState``)."""
+    schedule_count: int = 0
+
+    def tensors(self) -> dict:
+        return dict(super().tensors(), schedule_count=self.schedule_count)
+
+
+OptState = Union[AdamState, SGDState, NoamState]
+
+
+def opt_state_fits(state: OptState, saved: dict) -> bool:
+    """Whether a checkpoint's optimizer fields (``tensors()`` of a saved
+    state) have the fields and parameter names of ``state``."""
+    mine = state.tensors()
+    return set(saved) == set(mine) and all(
+        set(saved[k]) == set(v) for k, v in mine.items()
+        if isinstance(v, dict))
 
 
 def restore_opt_state(state: OptState, saved: dict) -> bool:
-    """Copies a checkpoint's optimizer fields (``tensors()`` of a saved
-    state) into ``state`` in place when both have the same fields and
-    parameter names; returns False, copying nothing, otherwise."""
-    mine = state.tensors()
-    if set(saved) != set(mine) or any(
-            set(saved[k]) != set(v) for k, v in mine.items()
-            if isinstance(v, dict)):
+    """Copies a checkpoint's optimizer fields into ``state`` in place when
+    they fit it (``opt_state_fits``); returns False, copying nothing,
+    otherwise."""
+    if not opt_state_fits(state, saved):
         return False
-    for k, v in mine.items():
+    for k, v in state.tensors().items():
         if isinstance(v, dict):
             for name, t in v.items():
                 t.copy_(saved[k][name])
@@ -115,6 +143,43 @@ class Adam:
         return state
 
 
+def noam_schedule(model_size: int, factor: float, warmup: int,
+                  min_lr: float) -> Callable[[int], float]:
+    """The Noam rate at the 0-based step count (mtl_tpu/train/optim.py:21;
+    NoamOpt counts from 1), in f32 as the JAX package computes it."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        s = f32(count + 1)
+        rate = f32(factor * model_size ** -0.5) * min(
+            s ** f32(-0.5), s * f32(warmup ** -1.5))
+        return float(max(rate, f32(min_lr)))
+
+    return schedule
+
+
+class NoamAdam(Adam):
+    """Adam(0.9, 0.98, eps 1e-9) at the Noam rate
+    (mtl_tpu/train/optim.py:34 ``noam_adam``)."""
+
+    def __init__(self, model_size: int, factor: float, warmup: int,
+                 min_lr: float):
+        super().__init__(0.0, b1=0.9, b2=0.98, eps=1e-9)
+        self.schedule = noam_schedule(model_size, factor, warmup, min_lr)
+
+    @staticmethod
+    def init(params: Dict[str, torch.Tensor]) -> NoamState:
+        adam = Adam.init(params)
+        return NoamState(adam.count, adam.mu, adam.nu, 0)
+
+    def update(self, grads: Dict[str, torch.Tensor], state: NoamState,
+               params: Dict[str, torch.Tensor]) -> NoamState:
+        self.lr = self.schedule(state.schedule_count)
+        super().update(grads, state, params)
+        state.schedule_count += 1
+        return state
+
+
 class SGD:
     def __init__(self, lr: float, momentum: float = 0.0,
                  nesterov: bool = False):
@@ -153,6 +218,17 @@ def make_joint_optimizer(cfg: Config) -> Union[Adam, SGD]:
 def make_meta_optimizers(cfg: Config) -> Tuple[float, Adam]:
     """(inner SGD lr, outer Adam at meta_lr)."""
     return cfg.train.lr, Adam(cfg.train.meta_lr)
+
+
+def make_epoch_optimizer(cfg: Config) -> NoamAdam:
+    """The epoch trainer's optimizer (mtl_tpu/train/optim.py:70): Noam
+    Adam with d = ``cfg.model.dim_input``, the JAX package's argument (the
+    encoder's input width, not d_model). ``--loss ctc`` (annealing SGD) is
+    not ported yet."""
+    if cfg.train.loss != "ce":
+        raise ValueError(f"--loss {cfg.train.loss} is not ported yet")
+    return NoamAdam(cfg.model.dim_input, cfg.train.k_lr, cfg.train.warmup,
+                    cfg.train.min_lr)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

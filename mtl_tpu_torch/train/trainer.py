@@ -1,24 +1,32 @@
-"""The training loops on the host (port of the ``TransientTrainer`` and
-``JointTrainer`` paths of mtl_tpu/train/trainer.py; reference
-trainer/asr/transient_trainer.py and joint_trainer.py).
+"""The training loops on the host (port of the ``TransientTrainer``,
+``MetaTrainer``, ``JointTrainer`` and ``EpochTrainer`` paths of
+mtl_tpu/train/trainer.py; reference trainer/asr/transient_trainer.py,
+meta_trainer.py, joint_trainer.py and trainer.py).
 
 Per iteration: the next batch from a double-buffer thread, one step on the
-device (train/steps.py: the first-order meta step, or the joint step), the
-train CER of the (support) hypotheses on the host, the reference's log
-lines letter for letter; every ``--evaluate-every`` iterations an
-evaluation of the valid sets, a checkpoint when the iteration is also a
-multiple of ``--save-every``, the best model by the early-stop criterion,
-and the early stop itself. The two trainers differ only in their
-optimizer, step, batch and logged learning rate.
+device (train/steps.py: the first-order meta step with the shared or the
+per-task query, or the joint step, each optionally with the
+discriminator head of train/steps_disc.py), the train CER of the (support)
+hypotheses on the host, the reference's log lines letter for letter;
+every ``--evaluate-every`` iterations an evaluation of the valid sets, a
+checkpoint when the iteration is also a multiple of ``--save-every``, the
+best model by the early-stop criterion, and the early stop itself. The
+iteration trainers differ only in their optimizer, step, batch and logged
+learning rate. The epoch trainer runs its own epochs over shuffled batches
+of one task (K = 1 joint steps, Noam Adam) on the same helpers: state,
+evaluation, checkpoints, early stop.
 
 The batch stream is the JAX package's: a trainer that builds its state
 itself first draws one batch (the JAX trainer's example batch for
 ``init_train_state``), and only then starts the prefetch thread, so both
 packages train on the same draws for one seed. ``--continue-from``
 restores the weights and, when the checkpoint's optimizer state has the
-structure of this trainer's optimizer, the step and that state too; else
-the weights alone, as the JAX trainers fall back to params. Mesh axes,
-several prefetch workers, the device CER, the discriminator heads,
+structure of this trainer's optimizer (and, with a discriminator, the
+checkpoint holds one whose state fits too), the step and those states;
+else the weights alone, as the JAX trainers fall back to params. The epoch
+trainer restores strictly, as the JAX one does. ``meta_evaluate`` is
+meta-test: one inner step on a support draw, then evaluation at the
+adapted weights. Mesh axes, several prefetch workers, the device CER,
 profiling and remat are not ported yet.
 """
 
@@ -27,7 +35,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +43,20 @@ import torch
 from ..config import Config
 from ..data.dataset import SpectrogramDataset
 from ..data.vocab import Vocab, post_process
+from ..models.discriminator import Discriminator
 from ..models.transformer import init_weights
 from ..utils.checkpoint import load_checkpoint, load_train_state, \
     save_checkpoint
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer_batch
 from ..utils.params import compute_num_params
-from .optim import (make_joint_optimizer, make_meta_optimizers,
-                    restore_opt_state)
-from .steps import (TrainState, batch_to_device, init_train_state,
-                    make_eval_step, make_joint_step, make_meta_step)
+from .optim import (make_epoch_optimizer, make_joint_optimizer,
+                    make_meta_optimizers, opt_state_fits, restore_opt_state)
+from .steps import (TrainState, _clip_tree, batch_to_device,
+                    init_train_state, make_eval_step, make_forward_fn,
+                    make_joint_step, make_meta_step)
+from .steps_disc import (init_disc_state, make_joint_step_disc,
+                         make_meta_step_disc)
 
 
 def batch_cer(hyp_ids, gold_ids, vocab: Vocab):
@@ -136,8 +148,6 @@ def check_ported(cfg: Config) -> None:
          max(cfg.mesh.task, cfg.mesh.data, cfg.mesh.model) > 1),
         ("--prefetch-workers > 1", cfg.train.prefetch_workers > 1),
         ("--device-cer", cfg.train.device_cer),
-        ("--adversarial/--multitask",
-         cfg.train.adversarial or cfg.train.multitask),
         ("--profile-dir", bool(cfg.train.profile_dir)),
         ("--second-order", cfg.train.second_order),
         ("--remat/--remat-conv", cfg.model.remat or cfg.model.remat_conv),
@@ -153,9 +163,13 @@ class TrainerBase:
     MAX_CONSECUTIVE_FAILURES = 20
 
     def __init__(self, model: torch.nn.Module, cfg: Config, vocab: Vocab,
-                 device: torch.device):
+                 device: torch.device,
+                 discriminator: Optional[Discriminator] = None):
+        """``discriminator`` (on ``device``) turns on the adversarial or
+        multitask head, as ``cfg.train.adversarial`` says."""
         check_ported(cfg)
         self.model = model
+        self.discriminator = discriminator
         self.cfg = cfg
         self.vocab = vocab
         self.device = device
@@ -174,18 +188,20 @@ class TrainerBase:
                 )
             )
 
-    def evaluate(self, valid_sets: Sequence[SpectrogramDataset], it: int):
+    def evaluate(self, valid_sets: Sequence[SpectrogramDataset], it: int,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
         """No-grad eval over the valid sets (transient_trainer.py:280-331),
-        at the model's current parameters. The final ragged batch is padded
-        with duplicate rows; loss and CER count its ``num_valid`` real rows
-        only."""
+        at the model's current parameters or at ``params``. The final
+        ragged batch is padded with duplicate rows; loss and CER count its
+        ``num_valid`` real rows only."""
         final_losses, final_cers = [], []
         for ind, ds in enumerate(valid_sets):
             total_loss, total_cer, total_char, n_batches = 0.0, 0, 0, 0
             for batch, num_valid in ds.iter_batches(
                     self.cfg.train.k_valid, shuffle=False,
                     with_valid_count=True):
-                _, aux = self.eval_step(batch_to_device(batch, self.device))
+                _, aux = self.eval_step(batch_to_device(batch, self.device),
+                                        params)
                 row_loss = aux["row_loss"].cpu().numpy()[:num_valid]
                 row_tok = aux["row_tokens"].cpu().numpy()[:num_valid]
                 cer, nchar = batch_cer(aux["hyp"].cpu().numpy()[:num_valid],
@@ -219,26 +235,68 @@ class TrainerBase:
 
     # -- the loop shared by the trainers; the subclasses' hooks: ---------
     # make_optimizer(), make_step(opt), fetch_fn(dataset) (draws one batch),
-    # run_step(step, state, batch, generator) -> (state, loss, hyp, gold),
-    # and the learning rate the TRAIN line prints, ``logged_lr``
+    # run_step(step, state, batch, generator, beta) -> (state, loss, hyp,
+    # gold), and the learning rate the TRAIN line prints, ``logged_lr``
 
-    def _build_state(self, opt) -> TrainState:
-        """Seeded init, or the checkpoint of ``--continue-from``: its
-        weights, and its step and optimizer state when that has the
-        structure of ``opt``'s (mtl_tpu/train/trainer.py:603-626)."""
+    def _build_state(self, opt, strict: bool = False) -> TrainState:
+        """Seeded init (the discriminator's state built after the model's),
+        or the checkpoint of ``--continue-from``: its weights, and its step
+        and optimizer states when they have the structure of this run's
+        (mtl_tpu/train/trainer.py:329-356, 603-626); ``strict`` raises
+        instead of keeping the weights alone."""
         cfg = self.cfg
         init_weights(self.model, torch.Generator().manual_seed(cfg.train.seed))
         state = init_train_state(self.model, opt)
+        if self.discriminator is not None:
+            state = init_disc_state(self.discriminator, cfg, state)
         if cfg.continue_from:
             _, _, state_dict, _, _ = load_checkpoint(cfg.continue_from)
             self.model.load_state_dict(state_dict)
             saved = load_train_state(cfg.continue_from)
-            if saved is not None:
-                step = saved.pop("step")
-                if restore_opt_state(state.opt_state, saved):
-                    state.step = step
+            if not (saved is not None and self._restore(state, saved)) \
+                    and strict:
+                raise ValueError(f"{cfg.continue_from}: the checkpoint's "
+                                 f"optimizer state does not fit this run's")
             log_print(f"RESTORED STATE from {cfg.continue_from}")
         return state
+
+    def _restore(self, state: TrainState, saved: dict) -> bool:
+        """Copies the step and optimizer state(s) of a training checkpoint
+        into ``state`` when all of them fit, else nothing."""
+        saved = dict(saved)
+        step, disc = saved.pop("step"), saved.pop("disc", None)
+        if not opt_state_fits(state.opt_state, saved):
+            return False
+        if self.discriminator is not None:
+            if disc is None:
+                return False
+            disc = dict(disc)
+            disc_params = disc.pop("params")
+            if set(disc_params) != set(state.disc_params) \
+                    or not opt_state_fits(state.disc_opt_state, disc):
+                return False
+            with torch.no_grad():
+                for name, p in state.disc_params.items():
+                    p.copy_(disc_params[name])
+            restore_opt_state(state.disc_opt_state, disc)
+        restore_opt_state(state.opt_state, saved)
+        state.step = step
+        return True
+
+    def _save(self, state: TrainState, step: int, metrics: Optional[dict],
+              best_model: bool = False,
+              train_step: Optional[int] = None) -> None:
+        """``model.pt`` holds the ASR weights alone, so ``test_main``
+        serves any training checkpoint; the optimizer state (at
+        ``train_step``, default ``step``) and the discriminator go beside
+        it."""
+        disc = None
+        if self.discriminator is not None:
+            disc = (state.disc_params, state.disc_opt_state)
+        save_checkpoint(self.cfg, self.vocab, self.model.state_dict(), step,
+                        metrics, best_model=best_model,
+                        opt_state=state.opt_state, disc=disc,
+                        train_step=train_step)
 
     def train(self, train_dataset: SpectrogramDataset,
               valid_sets: Sequence[SpectrogramDataset], start_it: int = 0,
@@ -272,6 +330,7 @@ class TrainerBase:
             deque(maxlen=window), deque(maxlen=window), deque(maxlen=window)
         )
         total_time = 0.0
+        beta = 1.0  # the adversarial weight under --beta-decay
         failures = 0
         it = start_it
         while it < num_it:
@@ -288,8 +347,11 @@ class TrainerBase:
                 continue
             failures = 0
             start_time = time.time()
-            state, loss, hyp, gold = self.run_step(step_fn, state, batch,
-                                                   generator)
+            if cfg.train.beta_decay:  # meta_trainer.py:258-260
+                beta *= 0.99997
+            state, loss, hyp, gold = self.run_step(
+                step_fn, state, batch, generator,
+                beta if cfg.train.beta_decay else 0.5)
             loss = float(loss)
             if (it + 1) % max(cfg.train.train_cer_every, 1) == 0:
                 cer, nchar = batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
@@ -329,14 +391,10 @@ class TrainerBase:
                     "history": history,
                 }
                 history.append(dict(metrics, history=None))
-                weights = self.model.state_dict()
                 if (it + 1) % cfg.train.save_every == 0:
-                    save_checkpoint(cfg, self.vocab, weights, it + 1, metrics,
-                                    opt_state=state.opt_state)
+                    self._save(state, it + 1, metrics)
                 if stopper.update(avg_loss, avg_cer):
-                    save_checkpoint(cfg, self.vocab, weights, it + 1, metrics,
-                                    best_model=True,
-                                    opt_state=state.opt_state)
+                    self._save(state, it + 1, metrics, best_model=True)
                 else:
                     log_print(f"count_stop: {stopper.count}")
                 if stopper.should_stop:
@@ -348,10 +406,13 @@ class TrainerBase:
 
 class TransientTrainer(TrainerBase):
     """Meta-transfer trainer (transient_trainer.py:79-377): the first-order
-    meta step, outer Adam at ``meta_lr``."""
+    meta step with the shared code-switched query, outer Adam at
+    ``meta_lr``."""
 
-    def _build_state(self, opt) -> TrainState:
-        state = super()._build_state(opt)
+    per_task_query = False
+
+    def _build_state(self, opt, strict: bool = False) -> TrainState:
+        state = super()._build_state(opt, strict)
         log_print("Parameters: {}(trainable), {}(non-trainable)".format(
             *compute_num_params(self.model)))
         return state
@@ -364,23 +425,85 @@ class TransientTrainer(TrainerBase):
         return make_meta_optimizers(self.cfg)[1]
 
     def make_step(self, opt):
-        return make_meta_step(self.model, self.cfg, opt)
+        if self.discriminator is not None:
+            return make_meta_step_disc(self.model, self.discriminator,
+                                       self.cfg, opt, self.per_task_query)
+        return make_meta_step(self.model, self.cfg, opt, self.per_task_query)
 
     def fetch_fn(self, train_dataset: SpectrogramDataset):
         cfg = self.cfg
-        return lambda: train_dataset.sample_meta_batch(cfg.train.k_train,
-                                                       cfg.train.k_valid)
+        return lambda: train_dataset.sample_meta_batch(
+            cfg.train.k_train, cfg.train.k_valid,
+            per_task_query=self.per_task_query)
 
-    def run_step(self, step_fn, state, batch, generator):
+    def run_step(self, step_fn, state, batch, generator, beta):
         support, query = (batch_to_device(b, self.device) for b in batch)
-        state, m = step_fn(state, support, query, generator)
+        state, m = step_fn(state, support, query, generator, beta)
         return state, m["outer_loss"], m["support_hyp"], m["support_gold"]
+
+
+class MetaTrainer(TransientTrainer):
+    """Standard MAML (meta_trainer.py): each task's own query batch."""
+
+    per_task_query = True
+
+
+def make_adapt_fn(model: torch.nn.Module, cfg: Config):
+    """One inner-SGD step of meta-test (meta_trainer.py:330-458;
+    mtl_tpu/train/trainer.py:503): ``adapt(params, batch, generator)``
+    returns the weights after one step of ``lr`` on the batch's CE, in
+    training mode (dropout on), with the optional clip."""
+    forward = make_forward_fn(model, cfg)
+
+    def adapt(params: Dict[str, torch.Tensor], batch, generator
+              ) -> Dict[str, torch.Tensor]:
+        names = list(params)
+        loss, _ = forward(params, batch, generator, False)
+        g = list(torch.autograd.grad(loss, [params[n] for n in names]))
+        if cfg.train.clip:
+            g = _clip_tree(g, cfg.train.max_norm)
+        with torch.no_grad():
+            return dict(zip(names, torch._foreach_add(
+                [params[n] for n in names], g, alpha=-cfg.train.lr)))
+
+    return adapt
+
+
+def meta_evaluate(trainer: TrainerBase, params: Dict[str, torch.Tensor],
+                  train_dataset: SpectrogramDataset,
+                  valid_sets: Sequence[SpectrogramDataset],
+                  num_meta_test: int = 1, adapt_manifest_id: int = -1
+                  ) -> Tuple[float, float]:
+    """Meta-test (mtl_tpu/train/trainer.py:522): per trial, one inner step
+    on a support draw of the (default: target) manifest, then no-grad
+    validation at the adapted weights; the averages over the trials."""
+    cfg = trainer.cfg
+    adapt = make_adapt_fn(trainer.model, cfg)
+    generator = torch.Generator(trainer.device).manual_seed(
+        cfg.train.seed + 7)
+    mid = adapt_manifest_id % len(train_dataset.ids_list)
+    losses, cers = [], []
+    for trial in range(max(1, num_meta_test)):
+        support, _ = train_dataset.sample_meta_batch(
+            cfg.train.k_train, 1, query_manifest_id=mid)
+        batch = batch_to_device({k: v[mid] for k, v in support.items()},
+                                trainer.device)
+        adapted = adapt(params, batch, generator)
+        avg_loss, avg_cer, _, _ = trainer.evaluate(valid_sets, trial,
+                                                   params=adapted)
+        losses.append(avg_loss)
+        cers.append(avg_cer)
+    n = len(losses)
+    log_print("(Meta-test) trials={} AVG LOSS:{:.4f} AVG CER:{:.2f}%".format(
+        n, sum(losses) / n, sum(cers) / n))
+    return sum(losses) / n, sum(cers) / n
 
 
 class JointTrainer(TrainerBase):
     """Iteration-based multi-task trainer (joint_trainer.py), also the
     finetune path (finetune.py:199-200): the joint step, Adam at ``lr`` or
-    SGD with nesterov momentum (``--opt_name sgd``)."""
+    SGD with nesterov momentum (``--opt_name sgd``), optionally with the
+    discriminator head."""
 
     @property
     def logged_lr(self) -> float:
@@ -390,6 +513,9 @@ class JointTrainer(TrainerBase):
         return make_joint_optimizer(self.cfg)
 
     def make_step(self, opt):
+        if self.discriminator is not None:
+            return make_joint_step_disc(self.model, self.discriminator,
+                                        self.cfg, opt)
         return make_joint_step(self.model, self.cfg, opt)
 
     def fetch_fn(self, train_dataset: SpectrogramDataset):
@@ -399,7 +525,73 @@ class JointTrainer(TrainerBase):
         return lambda: train_dataset.sample_meta_batch(cfg.train.k_train,
                                                        1)[0]
 
-    def run_step(self, step_fn, state, batch, generator):
+    def run_step(self, step_fn, state, batch, generator, beta):
         state, loss, aux = step_fn(state, batch_to_device(batch, self.device),
-                                   generator)
+                                   generator, beta)
         return state, loss, aux["hyp"], aux["gold"]
+
+
+class EpochTrainer(TrainerBase):
+    """The classic epoch loop (reference trainer/asr/trainer.py;
+    mtl_tpu/train/trainer.py:747) with Noam Adam: each epoch the shuffled
+    batches of the train set as K = 1 joint steps (a failing batch is
+    skipped), the epoch's TRAIN line, an evaluation, a checkpoint at
+    ``epoch + 1`` (what a resume continues after) and the best model,
+    written with step ``epoch`` as the JAX package writes it."""
+
+    def train(self, train_dataset: SpectrogramDataset,
+              valid_sets: Sequence[SpectrogramDataset],
+              start_epoch: int = 0, num_epochs: int = 10,
+              state: Optional[TrainState] = None) -> TrainState:
+        cfg = self.cfg
+        opt = make_epoch_optimizer(cfg)
+        step_fn = make_joint_step(self.model, cfg, opt)
+        generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
+        stopper = EarlyStopper(cfg.train.early_stop)
+        if state is None:
+            # the JAX trainer's example batch: it takes one shuffle of the
+            # dataset's RandomState before epoch 0
+            next(train_dataset.iter_batches(cfg.data.batch_size))
+            state = self._build_state(opt, strict=True)
+        for epoch in range(start_epoch, num_epochs):
+            total_loss, total_cer, total_char, n = 0.0, 0, 0, 0
+            failures = 0
+            for batch in train_dataset.iter_batches(cfg.data.batch_size):
+                # per-batch skip on error (reference trainer.py:132-171)
+                try:
+                    state, loss, aux = step_fn(
+                        state, batch_to_device(
+                            {k: v[None] for k, v in batch.items()},
+                            self.device), generator)
+                    if (n + 1) % max(cfg.train.train_cer_every, 1) == 0:
+                        cer, nchar = batch_cer(aux["hyp"].cpu().numpy(),
+                                               aux["gold"].cpu().numpy(),
+                                               self.vocab)
+                    else:
+                        cer, nchar = 0, 1
+                except Exception as e:
+                    failures += 1
+                    log_print(f"Error: {e!r}, skipping batch...")
+                    if failures >= self.MAX_CONSECUTIVE_FAILURES:
+                        raise
+                    continue
+                failures = 0
+                total_loss += float(loss)
+                total_cer += cer
+                total_char += max(nchar, 1)
+                n += 1
+            log_print("(Epoch {}) TRAIN LOSS:{:.4f} CER:{:.2f}%".format(
+                epoch, total_loss / max(n, 1),
+                total_cer * 100.0 / max(total_char, 1)))
+            avg_loss, avg_cer, _, _ = self.evaluate(valid_sets, epoch)
+            # the optimizer's step count rides along: an epoch is many
+            self._save(state, epoch + 1, {"avg_valid_loss": avg_loss,
+                                          "avg_valid_cer": avg_cer},
+                       train_step=state.step)
+            if stopper.update(avg_loss, avg_cer):
+                self._save(state, epoch, None, best_model=True,
+                           train_step=state.step)
+            if stopper.should_stop:
+                log_print("EARLY STOP")
+                break
+        return state

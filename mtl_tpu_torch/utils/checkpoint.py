@@ -9,7 +9,10 @@ and the outer Adam state.
 Layout: ``<save_folder>/<name>/{step_N,best_model}/`` holding
 ``model.pt`` (the state_dict, which ``test_main`` loads), ``meta.json`` and,
 from training, ``train_state.pt``: the step and the optimizer's fields
-(Adam: count, mu, nu; SGD with momentum: trace; SGD without: none).
+(Adam: count, mu, nu; Noam Adam: those and schedule_count; SGD with
+momentum: trace; SGD without: none) and, from a run with a discriminator
+head, ``disc``: its parameters (``params``, by name) and its optimizer's
+fields. The discriminator stays out of ``model.pt``.
 """
 
 from __future__ import annotations
@@ -31,22 +34,33 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in tensors.items()}
 
 
+def _fields(opt_state) -> dict:
+    return {k: _cpu(v) if isinstance(v, dict) else int(v)
+            for k, v in opt_state.tensors().items()}
+
+
 def save_checkpoint(cfg: Config, vocab: Vocab,
                     state_dict: Dict[str, torch.Tensor], step: int,
                     metrics: Optional[dict] = None,
-                    best_model: bool = False, opt_state=None) -> str:
+                    best_model: bool = False, opt_state=None,
+                    disc=None, train_step: Optional[int] = None) -> str:
     """Writes the step directory (or ``best_model``); ``opt_state`` (an
-    ``AdamState`` or ``SGDState``) makes it a training checkpoint that a
-    resume continues from."""
+    ``AdamState``, ``NoamState`` or ``SGDState``) makes it a training
+    checkpoint that a resume continues from, at the trainer's step count
+    ``train_step`` (default ``step``; the epoch trainer's differ); ``disc``
+    (the discriminator's params by name, its optimizer state) goes beside
+    it."""
     tag = "best_model" if best_model else f"step_{step}"
     path = os.path.abspath(os.path.join(cfg.save_folder, cfg.name, tag))
     os.makedirs(path, exist_ok=True)
     torch.save(_cpu(state_dict), os.path.join(path, MODEL_FILE))
     if opt_state is not None:
-        fields = {k: _cpu(v) if isinstance(v, dict) else int(v)
-                  for k, v in opt_state.tensors().items()}
-        torch.save({"step": int(step), **fields},
-                   os.path.join(path, TRAIN_STATE_FILE))
+        train_state = {"step": int(step if train_step is None
+                                   else train_step), **_fields(opt_state)}
+        if disc is not None:
+            train_state["disc"] = {"params": _cpu(disc[0]),
+                                   **_fields(disc[1])}
+        torch.save(train_state, os.path.join(path, TRAIN_STATE_FILE))
     meta = {
         "config": json.loads(cfg.to_json()),
         "vocab": vocab.to_dict(),

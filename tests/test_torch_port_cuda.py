@@ -15,8 +15,10 @@ with its launch counts, the beam's bank and the LM scorer (TF32 allowed
 globally) against the CPU, the beam ``test_main``'s launches, an LM
 training step (cuDNN's RNN backward, TF32 allowed globally) against the
 same step with TF32 off and against the CPU, the LM's second-order cell
-loop against the cuDNN forward, and one flagship-width joint step with its
-launch counts.
+loop against the cuDNN forward, one flagship-width joint step with its
+launch counts, and one f32 step each of MAML, the adversarial joint step,
+the multitask meta step and the epoch trainer's step (Noam Adam) against
+the CPU.
 Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
@@ -556,3 +558,142 @@ def test_flagship_joint_step_launches_the_kernels(dev, tmp_path):
     assert torch.isfinite(loss)
     moved = sum(int((state.params[k] != v).sum()) for k, v in before.items())
     assert moved > 0.5 * sum(v.numel() for v in before.values())
+
+
+class _GradRecorder:
+    """An optimizer that keeps the gradients (on the CPU) and moves
+    nothing."""
+
+    def init(self, params):
+        from mtl_tpu_torch.train.optim import AdamState
+
+        return AdamState(0, {}, {})
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().cpu() for k, g in grads.items()}
+        return state
+
+
+def _trainer_inputs(tmp_path):
+    """(config at f32, dropout 0, plain SGD for the discriminator; vocab;
+    MAML support and per-task query of 3 tasks x 2 utterances; a shared
+    query of 2; weights of the model and of the discriminator with nonzero
+    conv biases)."""
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.discriminator import (Discriminator,
+                                                    init_discriminator)
+
+    manifests, labels = make_synthetic_corpus(
+        str(tmp_path), num_tasks=3, utts_per_task=4, min_sec=1.0,
+        max_sec=1.9, seed=4)
+    vocab = Vocab.from_json(labels)
+    cfg, model = _tiny_asr(len(vocab), "float32")
+    cfg.data.src_bucket_frames = (200,)
+    t = cfg.train
+    t.opt_name, t.lr, t.lr_disc, t.clip, t.max_norm = "sgd", 1e-2, 0.1, \
+        True, 0.5
+    ds = SpectrogramDataset(vocab, cfg, manifests, is_train=True, seed=1)
+    support, query = ds.sample_meta_batch(2, 2, per_task_query=True)
+    shared = {k: v[-1] for k, v in query.items()}
+    rng = np.random.RandomState(0)
+    with torch.no_grad():
+        for conv in model.conv.convs:
+            conv.bias.copy_(torch.from_numpy(
+                rng.randn(conv.bias.numel()).astype(np.float32) * 0.1))
+    disc = Discriminator(cfg.model.dim_model, t.num_class)
+    init_discriminator(disc, torch.Generator().manual_seed(2))
+    return cfg, vocab, (support, query, shared), model.state_dict(), \
+        disc.state_dict()
+
+
+def _trainer_step(kind, d, cfg, vocab, batches, weights, dweights):
+    """One f32 step of ``kind`` on device ``d`` from the given weights:
+    (loss, model gradients, discriminator params after its SGD update or
+    None)."""
+    from mtl_tpu_torch.models.discriminator import Discriminator
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step, make_meta_step)
+    from mtl_tpu_torch.train.steps_disc import (init_disc_state,
+                                                make_joint_step_disc,
+                                                make_meta_step_disc)
+
+    cfg.train.adversarial = kind == "joint_adversarial"
+    cfg.train.multitask = kind == "meta_multitask"
+    support, query, shared = (batch_to_device(b, d) for b in batches)
+    model = build_model(cfg, len(vocab), d)
+    model.load_state_dict(weights)
+    rec = _GradRecorder()
+    state = init_train_state(model, rec)
+    disc = None
+    if kind in ("joint_adversarial", "meta_multitask"):
+        disc = Discriminator(cfg.model.dim_model, cfg.train.num_class).to(d)
+        state = init_disc_state(disc, cfg, state)
+        disc.load_state_dict(dweights)
+    if kind == "maml":
+        _, m = make_meta_step(model, cfg, rec, per_task_query=True)(
+            state, support, query)
+        loss = m["outer_loss"]
+    elif kind == "meta_multitask":
+        _, m = make_meta_step_disc(model, disc, cfg, rec)(state, support,
+                                                          shared)
+        loss = m["outer_loss"]
+    elif kind == "joint_adversarial":
+        _, loss, _ = make_joint_step_disc(model, disc, cfg, rec)(
+            state, support, None, 0.7)
+    else:  # the epoch trainer's step: one task's batch as K = 1
+        _, loss, _ = make_joint_step(model, cfg, rec)(
+            state, {k: v[:1] for k, v in support.items()})
+    after = None if disc is None else {
+        k: v.detach().cpu() for k, v in disc.state_dict().items()}
+    return float(loss), rec.grads, after
+
+
+@pytest.mark.parametrize("kind", ["maml", "joint_adversarial",
+                                  "meta_multitask", "epoch_noam"])
+def test_maml_disc_epoch_f32_steps_on_the_card_match_the_cpu(dev, tmp_path,
+                                                            kind):
+    """One f32 step of each of these training paths on the card (the f32 VGG
+    kernels and the stack's backward, the FFT STFT) against the CPU (plain
+    versions) from the same weights and batches: the loss within 1e-3
+    relative, the model's gradients rtol 1e-3 with atol 1e-3 of the
+    largest (cuDNN's backward against the CPU's conv sums them in other
+    orders), the discriminator's params after its plain SGD step within
+    1e-3 of its largest move; for the epoch step also Noam Adam's update
+    of the CPU's gradients on both devices (rtol 1e-6)."""
+    from mtl_tpu_torch.train.optim import make_epoch_optimizer
+
+    cfg, vocab, batches, weights, dweights = _trainer_inputs(tmp_path)
+    native.reset_launch_counts()
+    card = _trainer_step(kind, dev, cfg, vocab, batches, weights, dweights)
+    torch.cuda.synchronize()
+    c = dict(native.launch_counts)
+    cpu = _trainer_step(kind, torch.device("cpu"), cfg, vocab, batches,
+                       weights, dweights)
+    assert c["vgg_block1_f32"] >= 1 and c["vgg_block2_f32"] >= 1, c
+    assert c["vgg_stack_bwd"] >= 1 and c["stft_logmag"] >= 1, c
+    assert abs(card[0] - cpu[0]) <= 1e-3 * abs(cpu[0]), (card[0], cpu[0])
+    scale = max(float(g.abs().max()) for g in cpu[1].values())
+    for k, g in cpu[1].items():
+        torch.testing.assert_close(card[1][k], g, rtol=1e-3,
+                                   atol=1e-3 * scale)
+    if cpu[2] is not None:
+        top = max(float((cpu[2][k] - v).abs().max())
+                  for k, v in dweights.items())
+        assert top > 0
+        for k, v in cpu[2].items():
+            torch.testing.assert_close(card[2][k], v, rtol=0,
+                                       atol=1e-3 * top)
+    if kind == "epoch_noam":
+        moved = []
+        for d in (dev, torch.device("cpu")):
+            opt = make_epoch_optimizer(cfg)
+            params = {k: v.clone().to(d) for k, v in weights.items()
+                      if k in cpu[1]}
+            opt.update({k: g.to(d) for k, g in cpu[1].items()},
+                       opt.init(params), params)
+            moved.append({k: v.cpu() for k, v in params.items()})
+        for k, v in moved[1].items():
+            torch.testing.assert_close(moved[0][k], v, rtol=1e-6, atol=0)

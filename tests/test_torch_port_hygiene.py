@@ -94,11 +94,14 @@ def test_beam_and_lm_entry_points_raise_without_cuda(monkeypatch, entry,
     ("lm.main_joint_main", []),
     ("lm.main_meta_transfer_main", ["--second-order"]),
     ("lm.finetune_main", ["--load", "unused"]),
+    ("asr.train_main", []),
+    ("asr.meta_train_main", ["--adversarial", "--num-meta-test", "1"]),
 ])
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path,
                                                   entry, argv):
-    """The joint/finetune trainers and the LM's training mains ask for
-    cuda too, and raise without it before they touch a file."""
+    """The joint/finetune, epoch and MAML trainers and the LM's training
+    mains ask for cuda too, and raise without it before they touch a
+    file."""
     import importlib
 
     monkeypatch.chdir(tmp_path)

@@ -744,7 +744,7 @@ def test_early_stopper_parity():
 
 @pytest.mark.parametrize("flag,value", [
     ("mesh.data", 2), ("train.prefetch_workers", 2), ("train.device_cer", True),
-    ("train.adversarial", True), ("train.profile_dir", "/x"),
+    ("train.profile_dir", "/x"),
     ("train.second_order", True), ("model.remat", True),
     ("model.remat_conv", True)])
 def test_unported_training_options_raise(flag, value):
