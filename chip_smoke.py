@@ -115,7 +115,29 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    meta step, a Noam epoch step): loss, the model's and the
    discriminator's gradients, the params after the update; the f32 VGG
    kernels, the stack's backward and the STFT must launch;
-20. prints the kernels as one JSON line and, last, the result line.
+20. trains the flagship width through ``meta_transfer_train_main`` on
+   ``cuda`` with the training options on: ``--augment --noise-dir`` (two
+   seeded noise recordings) ``--prefetch-workers 4 --device-cer
+   --profile-dir``, 6 steps: every loss finite, the trace written, no
+   prefetch thread alive afterwards, the FFT STFT, both bf16 VGG kernels
+   and the stack's backward at least 2K a step; then one step's device CER
+   against the host CER of its support hyps (equal), both timed, and the
+   step timed and profiled;
+21. ``train_main --feat_extractor emb_cnn --loss ctc`` (one task of 16
+   utterances, batch 8, nesterov SGD, 2 epochs) and ``test_main`` greedy
+   on its best model: the FFT STFT launched, the VGG kernels never; one
+   epoch step timed and profiled;
+22. ``joint_train_main --feat logfbank`` (vgg_cnn over 80 mel bins, 3
+   steps) and ``test_main`` greedy on its best model: both bf16 VGG
+   kernels launched, the STFT never; one joint step timed and profiled;
+23. f32 parity, card against CPU: an emb_cnn CTC epoch step (loss,
+   gradients, params after nesterov SGD, the BatchNorm running statistics
+   after it), the log-fbank features, the device CER;
+24. prints the kernels as one JSON line and, last, the result line.
+
+Phase 3b holds both routes of both VGG blocks at the log-fbank shapes
+(80 bins into block 1, 40 into block 2) against their plain versions and
+prints their times beside phase 3's.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -393,6 +415,77 @@ def check_kernels(torch, dev):
             "_bound_note": note, "_path": path,
         }, err, rel, tol)
     return records
+
+
+FBANK_BINS = 80  # --feat logfbank: 80 mel bins into vgg_cnn
+
+
+def check_kernels_fbank(torch, dev):
+    """Phase 3b: both routes of both VGG blocks at the log-fbank shapes
+    (batch 8, 800 frames x 80 bins; block 2 at 400 x 40 x 64) against
+    their plain versions, as phase 3 holds them at 161 bins, with the same
+    tolerances, times (CUDA events), bounds and library chains."""
+    import torch.nn.functional as F
+
+    from mtl_tpu_torch.ops.vgg import (hwio_to_oihw, vgg_block1, vgg_block2,
+                                       vgg_block_plain)
+
+    rng = np.random.RandomState(SEED + 7)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def weights(c_in, c):
+        lim = math.sqrt(6.0 / (9 * c_in + 9 * c))
+        ws = [rng.uniform(-lim, lim, (3, 3, c_in, c)),
+              rng.randn(c) * 0.1,
+              rng.uniform(-math.sqrt(3.0 / (9 * c)),
+                          math.sqrt(3.0 / (9 * c)), (3, 3, c, c)),
+              rng.randn(c) * 0.1]
+        return [torch.from_numpy(w.astype(np.float32)).to(dev) for w in ws]
+
+    x1 = torch.from_numpy(rng.randn(B, T, FBANK_BINS).astype(
+        np.float32)).to(dev)
+    w_1, w_2 = weights(1, 64), weights(64, 128)
+    x2 = {d: vgg_block1(x1, *w_1, out_dtype=d) for d in (bf16, f32)}
+    for name, fn, x, ws, c_in, c, dtype in (
+            ("vgg_block1", vgg_block1, x1, w_1, 1, 64, bf16),
+            ("vgg_block1_f32", vgg_block1, x1, w_1, 1, 64, f32),
+            ("vgg_block2", vgg_block2, x2[bf16], w_2, 64, 128, bf16),
+            ("vgg_block2_f32", vgg_block2, x2[f32], w_2, 64, 128, f32)):
+        out = fn(x, *ws, out_dtype=dtype)
+        ref = vgg_block_plain(x, *ws, out_dtype=dtype)
+        torch.cuda.synchronize()
+        t_img, f_img = x.shape[1], x.shape[2]
+        check(out.shape == ref.shape == (B, t_img // 2, f_img // 2, c),
+              f"{name} at {FBANK_BINS} bins: shape")
+        d = (out.float() - ref.float()).abs()
+        if dtype == bf16:  # one bf16 ulp, as phase 3
+            bad = int((d > 2.0 ** -7 * ref.float().abs() + 2.0 ** -10).sum())
+            check(bad == 0, f"{name} at {FBANK_BINS} bins: {bad} outside "
+                            f"one bf16 ulp")
+            peak, tol = PEAK_BF16, "one bf16 ulp"
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+            peak, tol = PEAK_F32, "rtol=atol=1e-4"
+        flops = 2 * B * t_img * f_img * 9 * (c_in * c + c * c)
+        bound, by = _bound_ms(_nbytes(x, *ws, out), flops, peak)
+        xl = (x.reshape(B, t_img, f_img, c_in).permute(0, 3, 1, 2).to(dtype)
+              .contiguous(memory_format=torch.channels_last))
+        wl = [hwio_to_oihw(w).to(dtype).contiguous(
+            memory_format=torch.channels_last) if w.dim() == 4
+              else w.to(dtype) for w in ws]
+
+        def library():
+            y = F.relu(F.conv2d(xl, wl[0], wl[1], padding=1))
+            y = F.relu(F.conv2d(y, wl[2], wl[3], padding=1))
+            return F.max_pool2d(y, 2)
+
+        ms = _time_ms(lambda: fn(x, *ws, out_dtype=dtype))
+        plain_ms = _time_ms(lambda: vgg_block_plain(x, *ws, out_dtype=dtype))
+        print(f"kernel {name} at {FBANK_BINS} bins ([{B}, {t_img}, {f_img}"
+              f"{'' if c_in == 1 else f', {c_in}'}]): max_abs_err "
+              f"{float(d.max()):.3e} ({tol}); ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms {_time_ms(library):.4f} bound_ms "
+              f"{bound:.4f} ({by})", flush=True)
 
 
 def serve(torch, dev, corpus_dir, models_dir):
@@ -1594,6 +1687,333 @@ def maml_disc_epoch_parity(torch, dev, corpus):
     return counts
 
 
+# -- the training options, emb_cnn + CTC and the log-fbank front-end -------
+
+OPTION_STEPS, CTC_EPOCHS, FBANK_STEPS = 6, 2, 3
+
+
+def _noise_dir(work):
+    """Two seeded noise recordings (3 s and 1.5 s of 16 kHz noise) for
+    --noise-dir."""
+    from mtl_tpu_torch.data.synthetic import write_wav
+
+    root = os.path.join(work, "noise")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(SEED + 5)
+    for i, sec in enumerate((3.0, 1.5)):
+        write_wav(os.path.join(root, f"noise{i}.wav"),
+                  rng.uniform(-0.3, 0.3, int(sec * 16000)))
+    return root
+
+
+def _prefetch_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("prefetch") and t.is_alive()]
+
+
+def options(torch, dev, work, corpus):
+    """Phase 20: ``meta_transfer_train_main`` at the flagship width on
+    cuda with ``--augment --noise-dir --prefetch-workers 4 --device-cer
+    --profile-dir`` for 6 steps, the counts zeroed before and read after:
+    every loss finite, the trace written, no prefetch thread alive after
+    the run, the FFT STFT, both bf16 VGG kernels and the stack's backward
+    at least 2K a step. Then one meta step with --device-cer: its device
+    CER equals the host CER of its support hyps; the device CER's and the
+    host CER's ms; the step timed and profiled. Returns the launch
+    counts."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+    from mtl_tpu_torch.ops.edit_distance import device_cer
+    from mtl_tpu_torch.train.optim import make_meta_optimizers
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+    from mtl_tpu_torch.train.trainer import batch_cer
+
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    labels = os.path.join(corpus, "labels.json")
+    profile = os.path.join(work, "options_profile")
+    argv = _asr_train_argv(dev, manifests, labels,
+                           os.path.join(work, "options_models")) + [
+        "--augment", "--noise-dir", _noise_dir(work), "--prefetch-workers",
+        "4", "--device-cer", "--profile-dir", profile]
+    state, out, wall, counts = _run_cli(
+        torch, meta_transfer_train_main, argv + ["--epochs",
+                                                 str(OPTION_STEPS)],
+        work, "chip_options")
+    _finite_losses(out, OPTION_STEPS, "options run")
+    traces = [f for f in os.listdir(profile) if f.endswith(".json")]
+    alive = _prefetch_threads()
+    check(state.step == OPTION_STEPS and len(traces) == 1
+          and f"PROFILE written to {profile}" in out and not alive,
+          f"options run: step {state.step}, traces {traces}, prefetch "
+          f"threads alive {alive}")
+    print(f"options run: {OPTION_STEPS} meta steps with augmentation, noise, "
+          f"4 prefetch workers, the device CER and a profile "
+          f"({os.path.getsize(os.path.join(profile, traces[0])) / 2**20:.1f}"
+          f" MiB trace) in {wall:.3f} s; TOTAL TIME per iteration after the "
+          f"first: median {_per_iteration(out):.3f} ms; no prefetch thread "
+          f"alive after it", flush=True)
+    _check_counts(counts, 2 * K_TASKS * OPTION_STEPS, "options run",
+                  forward=("vgg_block1", "vgg_block2", "vgg_stack_bwd"))
+    check(counts["stft_logmag"] >= (K_TASKS + 1) * OPTION_STEPS,
+          f"options run STFT launches: {counts}")
+
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_options_timing")
+    batches = [[batch_to_device(b, dev) for b in ds.sample_meta_batch(
+        K_SHOT, K_SHOT)] for _ in range(6)]
+    _, opt = make_meta_optimizers(cfg)
+    state = init_train_state(model, opt)
+    space = vocab.label2id.get(" ")
+    step = make_meta_step(model, cfg, opt, space_id=space)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    _, m = step(state, *batches[0], gen)
+    hyp, gold = m["support_hyp"], m["support_gold"]
+    host = batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(), vocab)
+    dev_cer = (int(m["cer_dist"]), int(m["cer_chars"]))
+    check(dev_cer == host, f"device CER {dev_cer} != host CER {host}")
+    flat = (hyp.flatten(0, 1), gold.flatten(0, 1))
+    cer_ms = _time_ms(lambda: device_cer(*flat, space))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(), vocab)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"device CER of a step's support hyps ({hyp.shape[0]} x "
+          f"{hyp.shape[1]} rows of {hyp.shape[2]} ids): {dev_cer} equals the "
+          f"host CER; device_cer {cer_ms:.4f} ms (CUDA events, 20 calls), "
+          f"host batch_cer {host_ms:.4f} ms (host clock, copies to the host "
+          f"included)", flush=True)
+    it = iter(batches)
+    _time_and_profile(
+        torch, "meta step with --device-cer",
+        lambda: int(step(state, *next(it, batches[-1]), gen)[1]["cer_dist"]),
+        f"flagship, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}, augmented and "
+        f"noised batches")
+    return counts
+
+
+def _with_flag(argv, flag, value):
+    argv = list(argv)
+    argv[argv.index(flag) + 1] = value
+    return argv
+
+
+def emb_cnn_ctc(torch, dev, work, corpus):
+    """Phase 21: ``train_main --feat_extractor emb_cnn --loss ctc`` on cuda
+    at the flagship width over one task of the phase-9 corpus (16
+    utterances, batches of 8, nesterov SGD), 2 epochs, then ``test_main``
+    greedy on its best model; the counts zeroed before and read after
+    each: the FFT STFT launched and the VGG kernels never. Then one epoch
+    step timed and profiled. Returns the training run's launch counts."""
+    from mtl_tpu_torch.cli.asr import test_main, train_main
+    from mtl_tpu_torch.data.dataset import read_manifest
+    from mtl_tpu_torch.train.optim import SGD, make_epoch_optimizer
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step)
+
+    manifest = os.path.join(corpus, "manifest_task0.csv")
+    labels = os.path.join(corpus, "labels.json")
+    models = os.path.join(work, "ctc_models")
+    argv = _with_flag(_asr_train_argv(dev, [manifest], labels, models),
+                      "--feat_extractor", "emb_cnn")
+    argv = _with_flag(argv, "--valid-manifest-list",
+                      os.path.join(corpus, "manifest_task2.csv"))
+    argv += ["--batch-size", str(K_SHOT), "--loss", "ctc", "--lr", "1e-3"]
+    per_epoch = -(-len(read_manifest(manifest)) // K_SHOT)
+    state, out, wall, counts = _run_cli(
+        torch, train_main, argv + ["--epochs", str(CTC_EPOCHS)], work,
+        "chip_emb_cnn_ctc")
+    losses = [float(x) for x in re.findall(r"\(Epoch \d+\) TRAIN LOSS:(\S+)",
+                                           out)]
+    valid = [float(x) for x in re.findall(r"AVG VALID LOSS:(\S+)", out)]
+    check(len(losses) == len(valid) == CTC_EPOCHS
+          and all(map(math.isfinite, losses + valid))
+          and state.step == per_epoch * CTC_EPOCHS
+          and isinstance(state.opt_state.trace, dict),
+          f"emb_cnn + CTC run: losses {losses}, valid {valid}, step "
+          f"{state.step}")
+    vgg = [k for k in ("vgg_block1", "vgg_block2", "vgg_block1_f32",
+                       "vgg_block2_f32", "vgg_stack_bwd") if counts[k]]
+    check(counts["stft_logmag"] >= per_epoch * CTC_EPOCHS and not vgg
+          and counts["stft_logmag_direct"] == 0,
+          f"the emb_cnn run must launch the FFT STFT and no VGG kernel: "
+          f"{counts}")
+    print(f"emb_cnn + CTC run: {CTC_EPOCHS} epochs of {per_epoch} batches "
+          f"of {K_SHOT} (nesterov SGD) in {wall:.3f} s; launches {counts}",
+          flush=True)
+    res, out, wall, tcounts = _run_cli(
+        torch, test_main, ["--test-manifest-list", manifest,
+                           "--labels-path", labels, "--continue-from",
+                           os.path.join(models, "chip_emb_cnn_ctc",
+                                        "best_model"),
+                           "--device", dev.type, "--k-test", str(K_SHOT)],
+        work, "chip_emb_cnn_ctc_test")
+    total = [ln for ln in out.splitlines() if ln.startswith("TOTAL CER")]
+    check(res["utterances"] == 16 and len(total) == 1
+          and tcounts["stft_logmag"] == per_epoch
+          and not any(tcounts[k] for k in ("vgg_block1", "vgg_block2")),
+          f"test_main on the emb_cnn checkpoint: {res}, {tcounts}")
+    print(f"test_main serves the emb_cnn + CTC checkpoint in {wall:.3f} s: "
+          f"{total[0]}; launches {tcounts}", flush=True)
+
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_ctc_timing")
+    batches = [batch_to_device({k: v[None] for k, v in b.items()}, dev)
+               for b in ds.iter_batches(K_SHOT)]
+    opt = make_epoch_optimizer(cfg)
+    check(isinstance(opt, SGD) and opt.nesterov, "CTC's epoch optimizer")
+    state = init_train_state(model, opt)
+    step = make_joint_step(model, cfg, opt)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    k = iter(range(100))
+    _time_and_profile(
+        torch, "emb_cnn + CTC epoch step",
+        lambda: float(step(state, batches[next(k) % len(batches)], gen)[1]),
+        f"flagship width, emb_cnn, bf16, nesterov SGD, batch {K_SHOT}")
+    return counts
+
+
+def log_fbank(torch, dev, work, corpus):
+    """Phase 22: ``joint_train_main --feat logfbank`` on cuda at the
+    flagship width (vgg_cnn over 80 mel bins, Adam, K 3 x 8), 3 steps,
+    then ``test_main`` greedy on its best model; the counts zeroed before
+    and read after each: both bf16 VGG kernels (and the backward) launched,
+    the STFT never. Then one joint step timed and profiled. Returns the
+    training run's launch counts."""
+    from mtl_tpu_torch.cli.asr import joint_train_main, test_main
+    from mtl_tpu_torch.train.optim import make_joint_optimizer
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step)
+
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    labels = os.path.join(corpus, "labels.json")
+    models = os.path.join(work, "fbank_models")
+    argv = _asr_train_argv(dev, manifests, labels, models) + [
+        "--feat", "logfbank"]
+    state, out, wall, counts = _run_cli(
+        torch, joint_train_main, argv + ["--epochs", str(FBANK_STEPS)], work,
+        "chip_log_fbank")
+    _finite_losses(out, FBANK_STEPS, "log-fbank joint run")
+    stft = counts["stft_logmag"] + counts["stft_logmag_direct"]
+    check(state.step == FBANK_STEPS and stft == 0
+          and all(counts[k] >= K_TASKS * FBANK_STEPS
+                  for k in ("vgg_block1", "vgg_block2", "vgg_stack_bwd")),
+          f"the log-fbank run must launch both bf16 VGG kernels and the "
+          f"backward >= K a step and the STFT never: {counts}")
+    print(f"log-fbank joint run: {FBANK_STEPS} steps (K {K_TASKS} x "
+          f"{K_SHOT}, 80 mel bins) in {wall:.3f} s; launches {counts}",
+          flush=True)
+    res, out, wall, tcounts = _run_cli(
+        torch, test_main, ["--test-manifest-list", manifests[-1],
+                           "--labels-path", labels, "--continue-from",
+                           os.path.join(models, "chip_log_fbank",
+                                        "best_model"),
+                           "--device", dev.type, "--k-test", str(K_SHOT)],
+        work, "chip_log_fbank_test")
+    total = [ln for ln in out.splitlines() if ln.startswith("TOTAL CER")]
+    check(res["utterances"] == 16 and len(total) == 1
+          and tcounts["vgg_block1"] == tcounts["vgg_block2"] == 2
+          and tcounts["stft_logmag"] + tcounts["stft_logmag_direct"] == 0,
+          f"test_main on the log-fbank checkpoint: {res}, {tcounts}")
+    print(f"test_main serves the log-fbank checkpoint in {wall:.3f} s: "
+          f"{total[0]}; launches {tcounts}", flush=True)
+
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_fbank_timing")
+    batches = [batch_to_device(ds.sample_meta_batch(K_SHOT, 1)[0], dev)
+               for _ in range(6)]
+    opt = make_joint_optimizer(cfg)
+    state = init_train_state(model, opt)
+    step = make_joint_step(model, cfg, opt)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    it = iter(batches)
+    _time_and_profile(
+        torch, "log-fbank joint step",
+        lambda: float(step(state, next(it, batches[-1]), gen)[1]),
+        f"flagship, bf16, Adam, K {K_TASKS} x {K_SHOT}, 80 mel bins")
+    return counts
+
+
+def slice_parity(torch, dev, corpus):
+    """Phase 23: f32 on the card (kernels) against the CPU: an emb_cnn CTC
+    epoch step (nesterov SGD) as phases 10 and 12 (loss, gradients, params
+    after the update) and its BatchNorm running statistics after it
+    (rtol/atol 1e-4 of the largest); the log-fbank features of a batch
+    (f32 DFT and mel products, TF32 off: rtol/atol 1e-4, the log values
+    reach -15.9); the device CER of random ids (equal). Returns the CTC
+    run's launch counts."""
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.ops.edit_distance import device_cer
+    from mtl_tpu_torch.train.optim import SGD
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step, prepare_features)
+
+    cfg, vocab, support, _, _, _ = _parity_inputs(torch, corpus)
+    cfg = Config.from_dict(json.loads(cfg.to_json()))
+    cfg.model.feat_extractor, cfg.train.loss = "emb_cnn", "ctc"
+    cfg.finalize()
+    ref = build_model(cfg, len(vocab))
+    init_weights(ref, torch.Generator().manual_seed(SEED + 4))
+    g = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():  # trained running statistics are not 0 and 1
+        for mean, var in ref.conv.batch_stats():
+            mean.copy_(torch.randn(mean.shape, generator=g) * 0.3)
+            var.uniform_(0.5, 2.0, generator=g)
+    weights = {k: v.clone() for k, v in ref.state_dict().items()}
+    lr = cfg.train.lr
+    stats = []  # after each run: the card's, then the CPU's
+
+    def run(model, opt, d):
+        state = init_train_state(model, opt)
+        loss = make_joint_step(model, cfg, opt)(
+            state, {k: v[:1] for k, v in batch_to_device(support,
+                                                         d).items()})[1]
+        stats.append([t.detach().cpu() for pair in model.conv.batch_stats()
+                      for t in pair])
+        return loss
+
+    counts = _step_parity(torch, dev, cfg, vocab, weights, run, (
+        ("sgd", lr, lambda: SGD(lr, cfg.train.momentum, nesterov=True)),),
+        "emb_cnn CTC epoch")
+    serr = 0.0
+    for a, b in zip(stats[0], stats[-1]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+        serr = max(serr, float((a - b).abs().max()))
+    check(counts["stft_logmag"] >= 1 and not any(
+        counts[k] for k in ("vgg_block1", "vgg_block2", "vgg_block1_f32",
+                            "vgg_block2_f32")),
+          f"the emb_cnn step must run the STFT and no VGG kernel: {counts}")
+    print(f"emb_cnn CTC epoch parity: BatchNorm running statistics after "
+          f"the step max_abs_err {serr:.3e}; launches {counts}", flush=True)
+
+    fcfg = Config.from_dict(json.loads(cfg.to_json()))
+    fcfg.audio.feat = "logfbank"
+    batch = {k: torch.from_numpy(support[k][0]) for k in ("audio",
+                                                          "audio_lengths")}
+    card, cl = prepare_features({k: v.to(dev) for k, v in batch.items()},
+                                fcfg)
+    cpu, pl = prepare_features(batch, fcfg)
+    check(torch.equal(cl.cpu(), pl), "log-fbank frame counts")
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    print(f"log-fbank parity: features {tuple(cpu.shape)} max_abs_err "
+          f"{float((card.cpu() - cpu).abs().max()):.3e}", flush=True)
+
+    ids = torch.Generator().manual_seed(SEED + 6)
+    hyp = torch.randint(0, len(vocab), (24, 65), generator=ids)
+    gold = torch.randint(0, len(vocab), (24, 65), generator=ids)
+    space = vocab.label2id.get(" ")
+    got = [int(v) for v in device_cer(hyp.to(dev), gold.to(dev), space)]
+    want = [int(v) for v in device_cer(hyp, gold, space)]
+    check(got == want, f"device CER card {got} cpu {want}")
+    print(f"device CER parity: card {got} equals the CPU", flush=True)
+    return counts
+
+
 LM_WORDS, LM_TOKENS = (12000, 8000), 100_000
 
 
@@ -1898,8 +2318,10 @@ def main():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions; 3b. the VGG blocks at the
+    # log-fbank width
     records = check_kernels(torch, dev)
+    check_kernels_fbank(torch, dev)
 
     # 4-6. serve the flagship checkpoint
     corpus_dir = os.path.join(WORK, "corpus")
@@ -2004,6 +2426,16 @@ def main():
     print(f"MAML, discriminator and epoch phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 20. the training options; 21. emb_cnn + CTC; 22. log-fbank;
+    # 23. their f32 parity against the CPU
+    t0 = time.perf_counter()
+    options(torch, dev, WORK, train_corpus)
+    emb_cnn_ctc(torch, dev, WORK, train_corpus)
+    log_fbank(torch, dev, WORK, train_corpus)
+    slice_parity(torch, dev, train_corpus)
+    print(f"options, emb_cnn + CTC and log-fbank phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the STFT on the served path, the f32 VGG kernels on the
     # f32 parity path
@@ -2015,7 +2447,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 20. results
+    # 24. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -14,19 +14,25 @@ and query batches of one meta iteration (:245-321).
 Batches are padded to static bucket shapes and carry raw prepadded
 waveforms; the STFT front-end runs on the device. The draws come from one
 ``np.random.RandomState(seed)`` in the JAX package's order, so both
-packages draw the same utterances for one seed. Waveform augmentation and
-noise injection are not ported yet.
+packages draw the same utterances for one seed; a caller may pass its own
+``RandomState`` instead (the prefetch workers' per-iteration draws). With
+``augment`` each loaded waveform takes a random tempo and gain, and with
+``cfg.audio.noise_dir`` (on every set, as in the JAX package) noise with
+probability ``noise_prob``, drawn from the same ``RandomState`` in the JAX
+package's order (mtl_tpu/data/dataset.py:174-205); the wave cache is off
+then.
 """
 
 from __future__ import annotations
 
 import csv
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import Config
-from .audio import load_audio
+from .audio import NoiseInjector, augment_audio, load_audio
 from .vocab import PAD_ID, Vocab
 
 
@@ -133,11 +139,10 @@ class SpectrogramDataset:
                  is_train: bool = False,
                  partitions: Optional[Sequence[float]] = None,
                  seed: int = 0):
-        if augment or cfg.audio.noise_dir:
-            raise ValueError("--augment and --noise-dir are not ported yet")
         self.vocab = vocab
         self.cfg = cfg
         self.normalize = normalize
+        self.augment = augment
         self.is_train = is_train
         self.rng = np.random.RandomState(seed)
         self.ids_list = [read_manifest(p) for p in manifest_filepath_list]
@@ -157,31 +162,52 @@ class SpectrogramDataset:
             self.proba = [np.full(len(ids), 1.0 / len(ids))
                           for ids in self.ids_list]
             self.part_len = self.max_size
+        self.noise_injector = None
+        if cfg.audio.noise_dir:
+            self.noise_injector = NoiseInjector(
+                cfg.audio.noise_dir, cfg.audio.sample_rate,
+                (cfg.audio.noise_min, cfg.audio.noise_max))
         # bounded decoded-waveform cache: k-shot sampling revisits
-        # utterances constantly, and decoding would otherwise pace the step
+        # utterances constantly, and decoding would otherwise pace the step;
+        # off when augmenting (the waves are drawn anew each time)
         self._wave_cache: Dict[str, np.ndarray] = {}
         self._wave_cache_cap = int(cfg.data.wave_cache_size)
+        self._cache_lock = threading.Lock()
 
     def __len__(self) -> int:
         return self.part_len
 
-    def _load_wave(self, audio_path: str) -> np.ndarray:
-        cached = self._wave_cache.get(audio_path)
-        if cached is not None:
-            return cached
+    def _load_wave(self, audio_path: str,
+                   rng: Optional[np.random.RandomState] = None
+                   ) -> np.ndarray:
+        """The waveform, with tempo and gain and then noise drawn from
+        ``rng`` (default: the dataset's) when the set randomizes."""
+        rng = self.rng if rng is None else rng
+        randomized = self.augment or self.noise_injector is not None
+        if not randomized:
+            cached = self._wave_cache.get(audio_path)
+            if cached is not None:
+                return cached
         y = load_audio(audio_path, self.cfg.audio.sample_rate)
-        if self._wave_cache_cap > 0:
-            if len(self._wave_cache) >= self._wave_cache_cap:
-                self._wave_cache.pop(next(iter(self._wave_cache)))
-            self._wave_cache[audio_path] = y
+        if self.augment:
+            y = augment_audio(y, rng)
+        if self.noise_injector is not None:
+            if rng.binomial(1, self.cfg.audio.noise_prob):
+                y = self.noise_injector.inject(y, rng)
+        if not randomized and self._wave_cache_cap > 0:
+            with self._cache_lock:  # prefetch workers share the cache
+                if len(self._wave_cache) >= self._wave_cache_cap:
+                    self._wave_cache.pop(next(iter(self._wave_cache)))
+                self._wave_cache[audio_path] = y
         return y
 
-    def get_utterance(self, manifest_id: int,
-                      sample_id: int) -> Tuple[np.ndarray, List[int]]:
+    def get_utterance(self, manifest_id: int, sample_id: int,
+                      rng: Optional[np.random.RandomState] = None
+                      ) -> Tuple[np.ndarray, List[int]]:
         ids = self.ids_list[manifest_id]
         audio_path, transcript_path = ids[sample_id % len(ids)]
         return (
-            self._load_wave(audio_path),
+            self._load_wave(audio_path, rng),
             parse_transcript(transcript_path, self.vocab,
                              self.cfg.data.input_type),
         )
@@ -201,17 +227,21 @@ class SpectrogramDataset:
             force_frames=force_frames, force_tgt=force_tgt,
         )
 
-    def sample_pairs(self, k: int, manifest_id: int):
+    def sample_pairs(self, k: int, manifest_id: int,
+                     rng: Optional[np.random.RandomState] = None):
         """Draw k (wave, transcript) pairs of one manifest with its
-        probabilities, from the dataset's RandomState."""
+        probabilities, from ``rng`` (default: the dataset's RandomState),
+        which also draws their augmentation."""
+        rng = self.rng if rng is None else rng
         ids = self.ids_list[manifest_id]
-        chosen = self.rng.choice(np.arange(len(ids)), k,
-                                 p=self.proba[manifest_id], replace=True)
-        return [self.get_utterance(manifest_id, int(i)) for i in chosen]
+        chosen = rng.choice(np.arange(len(ids)), k,
+                            p=self.proba[manifest_id], replace=True)
+        return [self.get_utterance(manifest_id, int(i), rng) for i in chosen]
 
     def sample_meta_batch(self, k_train: int, k_valid: int,
                           query_manifest_id: int = -1,
-                          per_task_query: bool = False):
+                          per_task_query: bool = False,
+                          rng: Optional[np.random.RandomState] = None):
         """One meta iteration's data (mtl_tpu/data/dataset.py:276-322):
         support batches of k_train draws from every manifest, stacked
         [K, B, ...], and the query: k_valid draws from the last manifest
@@ -219,16 +249,16 @@ class SpectrogramDataset:
         ``per_task_query`` (MAML, meta_trainer.py:244) k_valid draws from
         every manifest, stacked [K, B, ...], drawn after all the support
         draws. All share one (frames, target) bucket so that the tasks
-        stack."""
+        stack. ``rng`` replaces the dataset's RandomState for every draw."""
         num_tasks = len(self.ids_list)
-        support_pairs = [self.sample_pairs(k_train, m)
+        support_pairs = [self.sample_pairs(k_train, m, rng)
                          for m in range(num_tasks)]
         if per_task_query:
-            query_pairs = [self.sample_pairs(k_valid, m)
+            query_pairs = [self.sample_pairs(k_valid, m, rng)
                            for m in range(num_tasks)]
         else:
-            query_pairs = [self.sample_pairs(k_valid,
-                                             query_manifest_id % num_tasks)]
+            query_pairs = [self.sample_pairs(
+                k_valid, query_manifest_id % num_tasks, rng)]
         hop = self.cfg.audio.hop_length
         all_pairs = [p for task in support_pairs + query_pairs for p in task]
         max_samples = (self.cfg.model.src_max_len - 1) * hop

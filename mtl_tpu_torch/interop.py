@@ -8,12 +8,15 @@ conv-flatten permutation: the port flattens (f, c) f-major like the JAX
 package):
 
 * ``layers_{i}`` -> ``layers.{i}``; ``conv/conv/Conv_{i}`` -> ``conv.convs.{i}``;
+* emb_cnn's ``conv/conv/BatchNorm_{i}``: ``scale`` and ``bias`` (params)
+  and ``mean`` and ``var`` (the ``batch_stats`` collection) ->
+  ``conv.bns.{i}.{scale,bias,mean,var}`` (the last two buffers);
 * Dense ``kernel`` [in, out] -> ``weight`` [out, in]; ``bias`` -> ``bias``;
 * LayerNorm ``scale`` -> ``weight``;
 * ``trg_embedding/embedding`` -> ``trg_embedding.weight`` as is (the PAD
   row is zeroed at lookup, not in the weights);
-* conv ``kernel`` keeps the flax HWIO layout [3(f), 3(t), C_in, C_out],
-  which the port's VGG kernels take.
+* conv ``kernel`` keeps the flax HWIO layout [kf, kt, C_in, C_out], which
+  the port's VGG kernels take.
 
 The training state moves the same way: optax Adam's ``mu`` and ``nu`` are
 trees shaped like the params, so they map by the same rules onto the port's
@@ -71,17 +74,16 @@ def _flatten(tree, prefix=()):
 
 def _torch_key(path) -> str:
     *mods, leaf = path
-    if mods[0] == "conv":  # conv/conv/Conv_{i}/{kernel,bias}
-        return f"conv.convs.{mods[2][len('Conv_'):]}.{leaf}"
+    if mods[0] == "conv":  # conv/conv/{Conv,BatchNorm}_{i}/{leaf}
+        kind, i = mods[2].rsplit("_", 1)
+        return f"conv.{'convs' if kind == 'Conv' else 'bns'}.{i}.{leaf}"
     mods = [re.sub(r"^layers_(\d+)$", r"layers.\1", m) for m in mods]
     leaf = {"kernel": "weight", "scale": "weight",
             "embedding": "weight"}.get(leaf, leaf)
     return ".".join(mods + [leaf])
 
 
-def flax_params_to_torch(params) -> Dict[str, torch.Tensor]:
-    """Flax ASRTransformer params -> port state_dict (float32 tensors)."""
-    tree = params.get("params", params)
+def _tree_to_torch(tree) -> Dict[str, torch.Tensor]:
     sd = {}
     for path, v in _flatten(tree):
         a = np.asarray(v, np.float32)
@@ -92,14 +94,31 @@ def flax_params_to_torch(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def flax_params_to_torch(params) -> Dict[str, torch.Tensor]:
+    """Flax ASRTransformer variables (``params`` and, for emb_cnn,
+    ``batch_stats``; or a bare params tree) -> port state_dict (float32
+    tensors)."""
+    sd = _tree_to_torch(params.get("params", params))
+    sd.update(_tree_to_torch(params.get("batch_stats", {})))
+    return sd
+
+
 def torch_to_flax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
-    """Port state_dict -> Flax ``{"params": ...}`` tree of float32 numpy."""
+    """Port state_dict -> Flax ``{"params": ...}`` tree of float32 numpy,
+    with a ``batch_stats`` collection when the state_dict holds emb_cnn's
+    running statistics."""
     tree: dict = {}
+    stats: dict = {}
     for key, t in state_dict.items():
         parts = key.split(".")
         a = t.detach().float().cpu().numpy()
+        node = tree
         if parts[:2] == ["conv", "convs"]:
             path = ["conv", "conv", f"Conv_{parts[2]}"] + parts[3:]
+        elif parts[:2] == ["conv", "bns"]:
+            path = ["conv", "conv", f"BatchNorm_{parts[2]}"] + parts[3:]
+            if path[-1] in ("mean", "var"):
+                node = stats
         else:
             path = []
             for p in parts:
@@ -114,18 +133,24 @@ def torch_to_flax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
                     path[-1] = "embedding"
                 else:
                     path[-1] = "scale"
-        node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a)
-    return {"params": tree}
+    return {"params": tree, **({"batch_stats": stats} if stats else {})}
+
+
+def _opt_tree_to_torch(tree) -> Dict[str, torch.Tensor]:
+    """A param-shaped optimizer tree -> by parameter name. Over emb_cnn's
+    variables optax also keeps (zero) moments of the ``batch_stats``; the
+    port's optimizers hold parameters only, so those are left out."""
+    return _tree_to_torch(tree.get("params", tree))
 
 
 def adam_state_from_optax(mu, nu, count) -> AdamState:
     """optax ``ScaleByAdamState`` fields (param-shaped ``mu``/``nu`` trees,
     ``count``) -> the port's ``AdamState``."""
-    return AdamState(int(np.asarray(count)), flax_params_to_torch(mu),
-                     flax_params_to_torch(nu))
+    return AdamState(int(np.asarray(count)), _opt_tree_to_torch(mu),
+                     _opt_tree_to_torch(nu))
 
 
 def adam_state_to_optax(state: AdamState):
@@ -138,7 +163,7 @@ def adam_state_to_optax(state: AdamState):
 def sgd_state_from_optax(trace) -> SGDState:
     """optax ``TraceState.trace`` (a param-shaped tree) -> the port's
     ``SGDState``."""
-    return SGDState(flax_params_to_torch(trace))
+    return SGDState(_opt_tree_to_torch(trace))
 
 
 def sgd_state_to_optax(state: SGDState):
@@ -153,8 +178,8 @@ def noam_state_from_optax(opt_state) -> NoamState:
     ``NoamState``."""
     adam, schedule = opt_state[0], opt_state[1]
     return NoamState(int(np.asarray(adam.count)),
-                     flax_params_to_torch(adam.mu),
-                     flax_params_to_torch(adam.nu),
+                     _opt_tree_to_torch(adam.mu),
+                     _opt_tree_to_torch(adam.nu),
                      int(np.asarray(schedule.count)))
 
 

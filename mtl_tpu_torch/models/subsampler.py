@@ -1,6 +1,5 @@
-"""Convolutional spectrogram subsampler (port of the vgg_cnn / large_cnn
-paths of mtl_tpu/models/subsampler.py; reference models/asr/transformer.py:
-38-72).
+"""Convolutional spectrogram subsampler (port of
+mtl_tpu/models/subsampler.py; reference models/asr/transformer.py:38-72).
 
 ``vgg_cnn``: 2 x [Conv3x3(SAME) -> ReLU -> Conv3x3(SAME) -> ReLU ->
 MaxPool2(VALID)] with 64 then 128 channels; time and freq both /4.
@@ -9,17 +8,37 @@ fused VGG kernels of ``ops/vgg.py``, through ``vgg_stack``, whose backward
 recomputes the plain version (the ``fused_vgg_stack`` custom VJP of the JAX
 package). Input [B, T, F] f32; output
 [B, T//4, (F//4) * C] in the compute dtype, flattened (f, c) f-major like
-the JAX package. ``emb_cnn`` is not ported yet.
+the JAX package.
+
+``emb_cnn`` (:104-117): Conv 41x11 (freq x time), stride (2, 2), padding
+(0, 10) -> BatchNorm -> clip to [0, 20] -> Conv 21x11, stride (2, 1),
+VALID -> BatchNorm -> clip, 32 channels. Its convs are XLA convs in the
+JAX package and cuDNN convs here. The BatchNorm is flax's ``nn.BatchNorm``
+as a function on tensors (``batch_norm``): f32, epsilon 1e-5; in training
+mode it normalizes by the batch's mean and biased variance over (batch,
+freq, time), padded frames included, and reports the running statistics
+that flax's update rule gives (momentum 0.99, the biased variance) to the
+caller's ``stats_out`` list instead of writing them into its buffers; in
+evaluation mode it normalizes by the buffers ``mean`` and ``var``. The
+training steps merge the reported statistics into the buffers
+(``train/steps.py``), so no forward mutates them.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.vgg import vgg_stack
 
 CHANNELS = {"vgg_cnn": (64, 128), "large_cnn": (32, 64)}
+# emb_cnn: (kernel (freq, time), stride, padding) of its two convs
+EMB_CNN = (((41, 11), (2, 2), (0, 10)), ((21, 11), (2, 1), (0, 0)))
+EMB_CHANNELS = 32
+BN_MOMENTUM, BN_EPSILON = 0.99, 1e-5
 
 
 def subsampled_length(feat_extractor: str, length: int) -> int:
@@ -35,14 +54,62 @@ def subsampled_length(feat_extractor: str, length: int) -> int:
     return length
 
 
-class ConvParams(nn.Module):
-    """One conv's ``kernel`` (flax HWIO [3(f), 3(t), C_in, C], f32) and
-    ``bias`` — the layout the VGG kernels take."""
+def subsampled_freq(feat_extractor: str, num_freq: int) -> int:
+    """Frequency bins after the conv front-end
+    (mtl_tpu/models/subsampler.py:39-45)."""
+    if feat_extractor in ("vgg_cnn", "large_cnn"):
+        return num_freq // 2 // 2
+    if feat_extractor == "emb_cnn":
+        h = (num_freq - 41) // 2 + 1
+        return (h - 21) // 2 + 1
+    return num_freq
 
-    def __init__(self, in_features: int, features: int):
+
+class ConvParams(nn.Module):
+    """One conv's ``kernel`` (flax HWIO [kf, kt, C_in, C], f32; 3 x 3 for
+    the VGG blocks, the layout their kernels take) and ``bias``."""
+
+    def __init__(self, in_features: int, features: int,
+                 size: Tuple[int, int] = (3, 3)):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(3, 3, in_features, features))
+        self.kernel = nn.Parameter(torch.zeros(*size, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
+
+
+class BatchNormParams(nn.Module):
+    """flax ``BatchNorm``'s ``scale`` and ``bias`` (parameters) and its
+    running ``mean`` and ``var`` (buffers, the ``batch_stats``
+    collection), f32, flax's initial values."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+
+def batch_norm(x: torch.Tensor, bn: BatchNormParams, train: bool,
+               stats_out: Optional[list] = None) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=not train,
+    dtype=float32)`` over channel axis 1 of ``x`` [B, C, H, W]: f32
+    statistics over (B, H, W), flax's fast variance E[x^2] - E[x]^2
+    floored at 0. In training mode the new running (mean, var) are
+    appended, detached, to ``stats_out`` when it is given."""
+    x = x.float()
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if stats_out is not None:
+            with torch.no_grad():
+                stats_out.append(
+                    (BN_MOMENTUM * bn.mean + (1.0 - BN_MOMENTUM) * mean,
+                     BN_MOMENTUM * bn.var + (1.0 - BN_MOMENTUM) * var))
+    else:
+        mean, var = bn.mean, bn.var
+    mul = torch.rsqrt(var + BN_EPSILON) * bn.scale
+    return ((x - mean[:, None, None]) * mul[:, None, None]
+            + bn.bias[:, None, None])
 
 
 class FeatureExtractor(nn.Module):
@@ -52,20 +119,50 @@ class FeatureExtractor(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.feat_extractor = feat_extractor
         self.convs = nn.ModuleList()
+        self.bns = nn.ModuleList()
         if feat_extractor in CHANNELS:
             c_in = 1
             for ch in CHANNELS[feat_extractor]:
                 self.convs.extend([ConvParams(c_in, ch), ConvParams(ch, ch)])
                 c_in = ch
+        elif feat_extractor == "emb_cnn":
+            c_in = 1
+            for size, _, _ in EMB_CNN:
+                self.convs.append(ConvParams(c_in, EMB_CHANNELS, size))
+                self.bns.append(BatchNormParams(EMB_CHANNELS))
+                c_in = EMB_CHANNELS
         elif feat_extractor not in ("none", None, ""):
-            raise ValueError(
-                f"feat_extractor {feat_extractor!r} is not ported yet")
+            raise ValueError(f"unknown feat_extractor {feat_extractor!r}")
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        """features: [B, T, F] -> [B, T', F' * C]."""
+    def forward(self, features: torch.Tensor, train: bool = False,
+                stats_out: Optional[List] = None) -> torch.Tensor:
+        """features: [B, T, F] -> [B, T', F' * C]. ``train`` and
+        ``stats_out`` reach emb_cnn's BatchNorm (``batch_norm``)."""
         if not len(self.convs):
             return features
+        if self.feat_extractor == "emb_cnn":
+            return self._emb_cnn(features, train, stats_out)
         weights = [t for conv in self.convs for t in (conv.kernel, conv.bias)]
         return vgg_stack(features.float().contiguous(), weights,
                          out_dtype=self.dtype)
+
+    def _emb_cnn(self, features: torch.Tensor, train: bool,
+                 stats_out: Optional[List]) -> torch.Tensor:
+        # NCHW with C = 1, H = freq, W = time (flax's NHWC geometry)
+        x = features.transpose(1, 2)[:, None].to(self.dtype)
+        for conv, bn, (_, stride, padding) in zip(self.convs, self.bns,
+                                                  EMB_CNN):
+            w = conv.kernel.permute(3, 2, 0, 1).to(self.dtype)
+            x = F.conv2d(x, w, conv.bias.to(self.dtype), stride=stride,
+                         padding=padding)
+            x = batch_norm(x, bn, train, stats_out)
+            x = torch.clamp(x, 0.0, 20.0).to(self.dtype)
+        b, c, f, t = x.shape  # -> [B, T', F' * C], (f, c) f-major
+        return x.permute(0, 3, 2, 1).reshape(b, t, f * c)
+
+    def batch_stats(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """The running (mean, var) buffers of each BatchNorm, in the order
+        ``stats_out`` reports them."""
+        return [(bn.mean, bn.var) for bn in self.bns]

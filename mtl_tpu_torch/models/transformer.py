@@ -51,25 +51,34 @@ class ASRTransformer(nn.Module):
                                is_factorized=is_factorized, r=r, dtype=dtype)
 
     def encode(self, features: torch.Tensor, input_lengths: torch.Tensor,
-               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+               gen: Optional[torch.Generator] = None,
+               train_conv: bool = False,
+               stats_out: Optional[list] = None) -> torch.Tensor:
         """features [B, T, F] log-spectrogram frames, input_lengths [B] raw
         frame counts (the encoder masks use them against downsampled time,
-        the reference's quirk)."""
-        return self.encoder(self.conv(features), input_lengths, gen)
+        the reference's quirk). ``train_conv`` runs emb_cnn's BatchNorm on
+        the batch's statistics and reports the new running statistics to
+        ``stats_out`` (mtl_tpu/models/transformer.py:84-99)."""
+        return self.encoder(self.conv(features, train_conv, stats_out),
+                            input_lengths, gen)
 
     def forward(self, features: torch.Tensor, input_lengths: torch.Tensor,
                 seq_in: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                return_encoder: bool = False):
+                return_encoder: bool = False,
+                stats_out: Optional[list] = None):
         """Teacher-forced logits B x L x V (f32). ``deterministic=False``
-        applies dropout, drawn from ``generator``. ``return_encoder``
-        returns (logits, encoder output [B, T', d_model]), the
-        discriminator heads' input (``forward_with_encoder``)."""
+        applies dropout, drawn from ``generator``, and trains emb_cnn's
+        BatchNorm (its new running statistics go to ``stats_out`` when
+        given). ``return_encoder`` returns (logits, encoder output [B, T',
+        d_model]), the discriminator heads' input
+        (``forward_with_encoder``)."""
         gen = None if deterministic else generator
         if gen is None and not deterministic and self.dropout > 0:
             raise ValueError("dropout needs a generator when not "
                              "deterministic")
-        enc = self.encode(features, input_lengths, gen)
+        enc = self.encode(features, input_lengths, gen,
+                          train_conv=not deterministic, stats_out=stats_out)
         logits = self.decoder(seq_in, enc, input_lengths, gen)
         return (logits, enc) if return_encoder else logits
 
@@ -124,14 +133,17 @@ def serving_copy(model: ASRTransformer) -> ASRTransformer:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init like the JAX package's: xavier-uniform for every matrix,
-    embedding and conv kernel; zero biases; LayerNorm scale 1, bias 0.
-    Draws on the CPU from ``generator`` so the weights do not depend on the
-    device."""
+    embedding and conv kernel; zero biases; LayerNorm and BatchNorm scale
+    1, bias 0; BatchNorm running mean 0, var 1. Draws on the CPU from
+    ``generator`` so the weights do not depend on the device."""
+    for name, b in model.named_buffers():
+        if name.endswith((".mean", ".var")):
+            b.fill_(1.0 if name.endswith(".var") else 0.0)
     for name, p in model.named_parameters():
         if p.dim() < 2:
-            p.copy_(torch.ones_like(p) if name.endswith("layer_norm.weight")
-                    or name.endswith("layer_norm_input.weight")
-                    else torch.zeros_like(p))
+            p.copy_(torch.ones_like(p) if name.endswith(
+                ("layer_norm.weight", "layer_norm_input.weight", ".scale"))
+                else torch.zeros_like(p))
             continue
         if p.dim() == 4:  # HWIO conv kernel
             rf = p.shape[0] * p.shape[1]

@@ -64,21 +64,32 @@ def vgg_block_plain(x, w1, b1, w2, b2, out_dtype=torch.bfloat16):
     max_pool2d in f32. With ``out_dtype=torch.bfloat16`` it is the
     bf16-operand form: x, w1, the conv-1 activation and w2 are rounded to
     bf16 before their conv, bias and ReLU stay f32, and the output is
-    rounded to bf16 once."""
-    if out_dtype == torch.bfloat16:
-        def operand(t):
-            return t.to(torch.bfloat16).float()
-    else:
-        def operand(t):
-            return t.float()
+    rounded to bf16 once.
+
+    It runs in flax's geometry, H = freq and W = time ([B, C, F, T],
+    channels-last in memory), so that the pool scans a window in the order
+    flax's max_pool does and a tie (a padded region's equal values) routes
+    its gradient to the element the JAX package picks. The layout changes
+    ride on the copies that round the input and the output."""
+    rounded = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
+
+    def operand(t):
+        return t.to(rounded).float()
+
     if x.dim() == 3:
         x = x[..., None]
-    y = operand(x).permute(0, 3, 1, 2)  # [B, C_in, T, F]
-    y = F.relu(F.conv2d(y, hwio_to_oihw(operand(w1)), b1.float(), padding=1))
-    y = F.relu(F.conv2d(operand(y), hwio_to_oihw(operand(w2)), b2.float(),
+    # [B, T, F, C_in] -> [B, F, T, C_in] in memory (one copy, which also
+    # rounds), viewed as [B, C_in, F, T]
+    y = x.transpose(1, 2).to(rounded, memory_format=torch.contiguous_format,
+                             copy=True).float().permute(0, 3, 1, 2)
+    y = F.relu(F.conv2d(y, operand(w1).permute(3, 2, 0, 1), b1.float(),
                         padding=1))
+    y = F.relu(F.conv2d(operand(y), operand(w2).permute(3, 2, 0, 1),
+                        b2.float(), padding=1))
     y = F.max_pool2d(y, 2)  # VALID, floor
-    return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+    # [B, C, F//2, T//2] -> [B, T//2, F//2, C], one copy with the rounding
+    return y.permute(0, 3, 2, 1).to(
+        out_dtype, memory_format=torch.contiguous_format, copy=True)
 
 
 def _taps_nk(w: torch.Tensor) -> torch.Tensor:

@@ -220,13 +220,15 @@ def make_meta_optimizers(cfg: Config) -> Tuple[float, Adam]:
     return cfg.train.lr, Adam(cfg.train.meta_lr)
 
 
-def make_epoch_optimizer(cfg: Config) -> NoamAdam:
-    """The epoch trainer's optimizer (mtl_tpu/train/optim.py:70): Noam
-    Adam with d = ``cfg.model.dim_input``, the JAX package's argument (the
-    encoder's input width, not d_model). ``--loss ctc`` (annealing SGD) is
-    not ported yet."""
+def make_epoch_optimizer(cfg: Config) -> Union[NoamAdam, SGD]:
+    """The epoch trainer's optimizer (mtl_tpu/train/optim.py:70-76): for
+    CE, Noam Adam with d = ``cfg.model.dim_input``, the JAX package's
+    argument (the encoder's input width, not d_model); for CTC, SGD at
+    ``lr`` with nesterov ``momentum`` (the reference's AnnealingOpt, whose
+    ``--lr-anneal`` the JAX package never applies, so neither does the
+    port)."""
     if cfg.train.loss != "ce":
-        raise ValueError(f"--loss {cfg.train.loss} is not ported yet")
+        return SGD(cfg.train.lr, cfg.train.momentum, nesterov=True)
     return NoamAdam(cfg.model.dim_input, cfg.train.k_lr, cfg.train.warmup,
                     cfg.train.min_lr)
 

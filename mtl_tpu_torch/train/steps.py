@@ -23,6 +23,18 @@ meta_trainer.py:244) task k takes its own query ``query[k]``, whose
 features are computed in its turn. Second order (gradients through the
 inner step) is not ported yet.
 
+With ``--loss ctc`` the loss is the CTC of the decoder's logits against
+the targets with input lengths ``min(src_percentages * L, L)``
+(:118-129), the reference's quirk. emb_cnn's BatchNorm statistics follow
+:103-158: each training forward reports the running statistics it would
+give from the same starting buffers, the step takes their mean over the
+K tasks (the meta step over the query forwards, the support forwards'
+dropped) and writes it into the buffers after the update; no gradient
+reaches them. With ``--device-cer`` the joint and meta steps (not those
+with a discriminator head, as in the JAX package) also return the train
+CER's edit distance and character count, computed on the batch's device
+(:214-220, :416-422).
+
 Both steps take an optional discriminator head (``steps_disc.py``), which
 adds the adversarial or multitask terms to each task's (query) loss and
 updates the discriminator from the same backward.
@@ -43,9 +55,11 @@ from torch.func import functional_call
 
 from ..config import Config
 from ..data.vocab import PAD_ID
-from ..ops.frontend import log_spectrogram
-from ..ops.targets import make_teacher_forcing
-from .losses import ce_loss, ce_row_losses, masked_loss_guard
+from ..ops.edit_distance import device_cer
+from ..ops.frontend import log_fbank, log_spectrogram
+from ..ops.targets import make_teacher_forcing, target_lengths
+from .losses import (ce_loss, ce_row_losses, ctc_loss, ctc_row_losses,
+                     masked_loss_guard)
 from .optim import OptState, global_norm
 
 
@@ -75,8 +89,15 @@ def prepare_features(batch: Dict[str, torch.Tensor], cfg: Config):
     precomputed ``features``."""
     if "features" in batch:
         return batch["features"], batch["input_lengths"]
-    if cfg.audio.feat != "spectrogram":
-        raise ValueError(f"--feat {cfg.audio.feat} is not ported yet")
+    if cfg.audio.feat == "logfbank":
+        # the psf front-end is uncentered: the n_fft // 2 reflect pad that
+        # collate_audio adds for the STFT comes off again
+        pad = cfg.audio.n_fft // 2
+        audio = batch["audio"]
+        return log_fbank(audio[:, pad:audio.shape[1] - pad],
+                         batch["audio_lengths"],
+                         sample_rate=cfg.audio.sample_rate, nfilt=80,
+                         normalize=cfg.audio.normalize)
     return log_spectrogram(
         batch["audio"], batch["audio_lengths"],
         n_fft=cfg.audio.n_fft, hop=cfg.audio.hop_length,
@@ -85,29 +106,50 @@ def prepare_features(batch: Dict[str, torch.Tensor], cfg: Config):
     )
 
 
+def _ctc_input_lengths(batch, t: int) -> torch.Tensor:
+    """min(src_percentages * t, t): the CTC input lengths on decoder-length
+    logits (mtl_tpu/train/steps.py:121-127)."""
+    targets = batch["targets"]
+    pct = batch.get("src_percentages")
+    if pct is None:
+        pct = torch.ones(targets.shape[0], device=targets.device)
+    return torch.clamp((pct * t).int(), max=t)
+
+
 def make_forward_fn(model: torch.nn.Module, cfg: Config) -> Callable:
-    """Teacher-forced forward + CE loss (mtl_tpu/train/steps.py:90-143).
-    ``forward(params, batch, generator, deterministic, with_encoder)``
-    returns (loss, aux with argmax ``hyp`` and ``gold`` B x L,
-    ``num_correct``, and with ``with_encoder`` the encoder output ``enc``
-    of ``forward_with_encoder``); ``params`` None runs the model's own
-    parameters, a dict runs those instead."""
-    if cfg.train.loss != "ce":
-        raise ValueError(f"--loss {cfg.train.loss} is not ported yet")
+    """Teacher-forced forward + loss, CE or CTC
+    (mtl_tpu/train/steps.py:90-143). ``forward(params, batch, generator,
+    deterministic, with_encoder, stats_out)`` returns (loss, aux with argmax
+    ``hyp`` and ``gold`` B x L, ``num_correct``, and with ``with_encoder``
+    the encoder output ``enc`` of ``forward_with_encoder``); ``params``
+    None runs the model's own parameters, a dict runs those instead. A
+    training forward of emb_cnn appends its BatchNorms' new running
+    statistics to ``stats_out`` when given."""
+    if cfg.train.loss not in ("ce", "ctc"):
+        raise ValueError(f"unknown --loss {cfg.train.loss!r}")
     smoothing = cfg.train.label_smoothing
 
     def forward(params: Optional[Dict[str, torch.Tensor]], batch,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True, with_encoder: bool = False):
+                deterministic: bool = True, with_encoder: bool = False,
+                stats_out: Optional[list] = None):
         feats, input_lengths = prepare_features(batch, cfg)
-        seq_in, seq_out = make_teacher_forcing(batch["targets"])
+        targets = batch["targets"]
+        seq_in, seq_out = make_teacher_forcing(targets)
         args = (feats, input_lengths, seq_in)
         kwargs = dict(deterministic=deterministic, generator=generator,
-                      return_encoder=with_encoder)
+                      return_encoder=with_encoder, stats_out=stats_out)
         out = (model(*args, **kwargs) if params is None
                else functional_call(model, params, args, kwargs))
         logits, enc = out if with_encoder else (out, None)
-        loss, num_correct = ce_loss(logits, seq_out, PAD_ID, smoothing)
+        if cfg.train.loss == "ctc":
+            loss = ctc_loss(torch.log_softmax(logits, dim=-1),
+                            _ctc_input_lengths(batch, logits.shape[1]),
+                            targets, target_lengths(targets))
+            num_correct = torch.zeros((), dtype=torch.long,
+                                      device=logits.device)
+        else:
+            loss, num_correct = ce_loss(logits, seq_out, PAD_ID, smoothing)
         aux = {"hyp": logits.argmax(dim=-1), "gold": seq_out,
                "num_correct": num_correct}
         if with_encoder:
@@ -115,6 +157,26 @@ def make_forward_fn(model: torch.nn.Module, cfg: Config) -> Callable:
         return masked_loss_guard(loss), aux
 
     return forward
+
+
+@torch.no_grad()
+def _merge_batch_stats(model: torch.nn.Module, per_task: List[list]) -> None:
+    """Writes the mean over the tasks of the running statistics each
+    task's forward reported (from the same starting buffers) into emb_cnn's
+    buffers (mtl_tpu/train/steps.py:146-158); nothing without them."""
+    per_task = [stats for stats in per_task if stats]
+    if not per_task:
+        return
+    for j, (mean, var) in enumerate(model.conv.batch_stats()):
+        mean.copy_(torch.stack([stats[j][0] for stats in per_task]).mean(0))
+        var.copy_(torch.stack([stats[j][1] for stats in per_task]).mean(0))
+
+
+def _device_cer_metrics(hyp: torch.Tensor, gold: torch.Tensor,
+                        space_id: Optional[int]) -> Dict[str, torch.Tensor]:
+    """``cer_dist`` / ``cer_chars`` of [K, B, L] hyps against their gold."""
+    d, c = device_cer(hyp.flatten(0, 1), gold.flatten(0, 1), space_id)
+    return {"cer_dist": d, "cer_chars": c}
 
 
 def _clip_tree(grads: List[torch.Tensor], max_norm: float
@@ -130,7 +192,7 @@ def _task_batch(batches: Dict[str, torch.Tensor], i: int):
 
 
 def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
-                    head=None) -> Callable:
+                    head=None, space_id: Optional[int] = None) -> Callable:
     """One joint iteration. ``step(state, batches, generator, beta)``:
     ``batches`` holds tensors with a leading task axis K. Returns (state,
     mean CE, aux with the argmax ``hyp`` and ``gold`` [K, B, L]).
@@ -140,18 +202,24 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
     (accent k) adds ``head.terms``, the loss is mean(CE) + mean(terms), one
     backward reaches the model and the discriminator (``state`` is then a
     ``DiscTrainState``), the model's gradients alone are clipped, and each
-    side takes its own update. The returned loss stays the mean CE."""
+    side takes its own update. The returned loss stays the mean CE.
+
+    With ``cfg.train.device_cer`` and no head, aux also holds
+    ``cer_dist`` / ``cer_chars`` (``space_id``: the vocabulary's space)."""
     forward = make_forward_fn(model, cfg)
     clip, max_norm = cfg.train.clip, cfg.train.max_norm
+    with_cer = cfg.train.device_cer and head is None
 
     def step(state: TrainState, batches: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, beta: float = 0.5):
         names = list(state.params)
         params = [state.params[n] for n in names]
-        ces, terms, auxes = [], [], []
+        ces, terms, auxes, stats = [], [], [], []
         for i in range(batches["targets"].shape[0]):
+            stats.append([])
             ce, aux = forward(None, _task_batch(batches, i), generator, False,
-                              with_encoder=head is not None)
+                              with_encoder=head is not None,
+                              stats_out=stats[-1])
             if head is not None:
                 terms.append(head.terms(aux.pop("enc"), i, beta))
             ces.append(ce)
@@ -167,8 +235,12 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
             grads = _clip_tree(grads, max_norm)
         optimizer.update(dict(zip(names, grads)), state.opt_state,
                          state.params)
+        _merge_batch_stats(model, stats)
         out = {"hyp": torch.stack([a["hyp"] for a in auxes]),
                "gold": torch.stack([a["gold"] for a in auxes])}
+        if with_cer:
+            out.update(_device_cer_metrics(out["hyp"], out["gold"],
+                                           space_id))
         if head is not None:
             head.update(state, d_grads)
             out["ce"] = ce.detach()
@@ -180,7 +252,8 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
 
 
 def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
-                   per_task_query: bool = False, head=None) -> Callable:
+                   per_task_query: bool = False, head=None,
+                   space_id: Optional[int] = None) -> Callable:
     """One first-order meta iteration. ``step(state, support, query,
     generator, beta)``: ``support`` holds tensors with a leading task axis
     K; ``query`` one batch shared by the tasks (meta-transfer), or with
@@ -193,11 +266,15 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
     (mtl_tpu/train/steps_disc.py:77-186): accent k under MAML, K - 1 (the
     target task) under the shared query; the inner step stays plain CE.
     The outer loss is the mean of the augmented query losses; the
-    discriminator's gradients are the mean over the tasks, not clipped."""
+    discriminator's gradients are the mean over the tasks, not clipped.
+
+    With ``cfg.train.device_cer`` and no head, the metrics also hold
+    ``cer_dist`` / ``cer_chars`` of the support hyps."""
     if cfg.train.second_order:
         raise ValueError("--second-order is not ported yet")
     forward = make_forward_fn(model, cfg)
     inner_lr, clip, max_norm = cfg.train.lr, cfg.train.clip, cfg.train.max_norm
+    with_cer = cfg.train.device_cer and head is None
 
     def step(state: TrainState, support: Dict[str, torch.Tensor],
              query: Dict[str, torch.Tensor],
@@ -208,11 +285,13 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
         if not per_task_query:  # the shared query's features, once
             feats, lengths = prepare_features(query, cfg)
             query = {"features": feats, "input_lengths": lengths,
-                     "targets": query["targets"]}
+                     "targets": query["targets"],
+                     "src_percentages": query["src_percentages"]}
         k = support["targets"].shape[0]
         gsum = None  # the sum over the tasks of the model's gradients
         # at the adapted weights, then the discriminator's
         q_losses, s_losses, s_aux, q_aux, terms, ces = [], [], [], [], [], []
+        stats = []  # the query forwards' BatchNorm statistics
         for i in range(k):
             s_loss, aux = forward(None, _task_batch(support, i), generator,
                                   False)
@@ -224,8 +303,10 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             for a in adapted:
                 a.requires_grad_(True)
             q = _task_batch(query, i) if per_task_query else query
+            stats.append([])
             q_loss, aux_q = forward(dict(zip(names, adapted)), q, generator,
-                                    False, with_encoder=head is not None)
+                                    False, with_encoder=head is not None,
+                                    stats_out=stats[-1])
             if head is not None:
                 ces.append(q_loss.detach())
                 terms.append(head.terms(aux_q.pop("enc"),
@@ -247,6 +328,7 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             gsum = _clip_tree(gsum, max_norm)
         outer_optimizer.update(dict(zip(names, gsum)), state.opt_state,
                                state.params)
+        _merge_batch_stats(model, stats)
         metrics = {
             "outer_loss": torch.stack(q_losses).mean(),
             "support_losses": torch.stack(s_losses),
@@ -255,6 +337,9 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             "query_hyp": torch.stack([a["hyp"] for a in q_aux]),
             "query_gold": torch.stack([a["gold"] for a in q_aux]),
         }
+        if with_cer:
+            metrics.update(_device_cer_metrics(
+                metrics["support_hyp"], metrics["support_gold"], space_id))
         if head is not None:
             head.update(state, dsum)
             metrics["query_ce"] = torch.stack(ces).mean()
@@ -266,14 +351,13 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
 
 
 def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
-    """Deterministic CE evaluation of one batch (mtl_tpu/train/steps.py:
+    """Deterministic evaluation of one batch (mtl_tpu/train/steps.py:
     434-482) at the model's parameters, or at ``params`` (a dict by name,
     such as meta-test's adapted weights) through ``functional_call``:
     (loss, aux with ``hyp``, ``gold`` and the per-row ``row_loss`` /
     ``row_tokens``, so that the padded rows of a ragged final batch can be
-    left out)."""
-    if cfg.train.loss != "ce":
-        raise ValueError(f"--loss {cfg.train.loss} is not ported yet")
+    left out). Under CTC a row's loss is its CTC over max(target length,
+    1) and it counts as one token."""
     smoothing = cfg.train.label_smoothing
 
     @torch.no_grad()
@@ -284,8 +368,16 @@ def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
         args = (feats, input_lengths, seq_in)
         logits = (model(*args, deterministic=True) if params is None
                   else functional_call(model, params, args))
-        row_loss, row_tokens = ce_row_losses(logits, seq_out, PAD_ID,
-                                             smoothing)
+        if cfg.train.loss == "ctc":
+            targets = batch["targets"]
+            tlens = target_lengths(targets)
+            row_loss = ctc_row_losses(
+                torch.log_softmax(logits, dim=-1),
+                _ctc_input_lengths(batch, logits.shape[1]), targets, tlens)
+            row_tokens = torch.ones_like(tlens)
+        else:
+            row_loss, row_tokens = ce_row_losses(logits, seq_out, PAD_ID,
+                                                 smoothing)
         loss = masked_loss_guard(row_loss.sum()
                                  / row_tokens.sum().clamp_min(1))
         return loss, {"hyp": logits.argmax(dim=-1), "gold": seq_out,

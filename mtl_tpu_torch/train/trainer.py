@@ -3,11 +3,16 @@
 mtl_tpu/train/trainer.py; reference trainer/asr/transient_trainer.py,
 meta_trainer.py, joint_trainer.py and trainer.py).
 
-Per iteration: the next batch from a double-buffer thread, one step on the
+Per iteration: the next batch from a double-buffer thread (or, with
+``--prefetch-workers N > 1``, from N workers that draw future iterations
+ahead, each from its own per-iteration ``RandomState``), one step on the
 device (train/steps.py: the first-order meta step with the shared or the
 per-task query, or the joint step, each optionally with the
 discriminator head of train/steps_disc.py), the train CER of the (support)
-hypotheses on the host, the reference's log lines letter for letter;
+hypotheses on the host (with ``--device-cer``, two scalars the step
+computed on the device, except under a discriminator head, as in the JAX
+package), the reference's log lines letter for letter; with
+``--profile-dir`` a torch.profiler trace of iterations start+4 to start+8;
 every ``--evaluate-every`` iterations an evaluation of the valid sets, a
 checkpoint when the iteration is also a multiple of ``--save-every``, the
 best model by the early-stop criterion, and the early stop itself. The
@@ -26,15 +31,16 @@ checkpoint holds one whose state fits too), the step and those states;
 else the weights alone, as the JAX trainers fall back to params. The epoch
 trainer restores strictly, as the JAX one does. ``meta_evaluate`` is
 meta-test: one inner step on a support draw, then evaluation at the
-adapted weights. Mesh axes, several prefetch workers, the device CER,
-profiling and remat are not ported yet.
+adapted weights. Mesh axes, second order and remat are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -115,6 +121,49 @@ class Prefetcher:
             self._thread = None
 
 
+class MultiWorkerPrefetcher:
+    """Ordered N-worker prefetch (mtl_tpu/train/trainer.py:102-141):
+    ``fetch_at(i)`` is a pure function of the iteration index (the
+    trainers draw iteration i from ``RandomState((seed * 1_000_003 + i) %
+    2**32)``), so workers compute future iterations concurrently and
+    ``get()`` hands them out in order: the stream is the same for any
+    worker count above 1. A worker's exception re-raises from ``get()``
+    for its iteration only. ``stop()`` cancels the fetches not started and
+    waits for those running, so no fetch outlives the loop."""
+
+    def __init__(self, fetch_at, num_workers: int, start: int = 0):
+        self.fetch_at = fetch_at
+        self.pool = ThreadPoolExecutor(max_workers=max(1, num_workers),
+                                       thread_name_prefix="prefetch")
+        self.depth = max(2, 2 * num_workers)
+        self._futures: dict = {}
+        self._next = start
+        self._head = start
+        for _ in range(self.depth):
+            self._submit()
+
+    def _submit(self):
+        self._futures[self._next] = self.pool.submit(self.fetch_at,
+                                                     self._next)
+        self._next += 1
+
+    def get(self):
+        fut = self._futures.pop(self._head)
+        self._head += 1
+        self._submit()
+        return fut.result()
+
+    def stop(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        self._futures.clear()
+
+
+def iteration_rng(seed: int, i: int) -> np.random.RandomState:
+    """The RandomState of iteration ``i``'s draw under several prefetch
+    workers (mtl_tpu/train/trainer.py:376-377)."""
+    return np.random.RandomState((seed * 1_000_003 + i) % (2 ** 32))
+
+
 class EarlyStopper:
     """`criterion,patience` parsing + best-value tracking
     (transient_trainer.py:93,337-360)."""
@@ -146,9 +195,6 @@ def check_ported(cfg: Config) -> None:
     missing = [flag for flag, on in (
         ("--mesh-task/--mesh-data/--mesh-model > 1",
          max(cfg.mesh.task, cfg.mesh.data, cfg.mesh.model) > 1),
-        ("--prefetch-workers > 1", cfg.train.prefetch_workers > 1),
-        ("--device-cer", cfg.train.device_cer),
-        ("--profile-dir", bool(cfg.train.profile_dir)),
         ("--second-order", cfg.train.second_order),
         ("--remat/--remat-conv", cfg.model.remat or cfg.model.remat_conv),
     ) if on]
@@ -173,6 +219,7 @@ class TrainerBase:
         self.cfg = cfg
         self.vocab = vocab
         self.device = device
+        self.space_id = vocab.label2id.get(" ")
         self.eval_step = make_eval_step(model, cfg)
         if (cfg.train.save_every % max(cfg.train.evaluate_every, 1) != 0
                 and cfg.train.evaluate_every % max(cfg.train.save_every, 1)
@@ -232,11 +279,26 @@ class TrainerBase:
         )
         return avg_loss, avg_cer, final_losses, final_cers
 
+    def _train_cer(self, hyp, gold, metrics, n: int) -> Tuple[int, int]:
+        """(edit distance, gold characters) of a step's train CER: the
+        step's device scalars under ``--device-cer`` when it returned them
+        (a discriminator step does not), else the host CER every
+        ``--train-cer-every`` steps (the ``n``-th counted from 0), else
+        (0, 1) (mtl_tpu/train/trainer.py:441-446)."""
+        if self.cfg.train.device_cer and "cer_dist" in metrics:
+            return (int(metrics["cer_dist"]),
+                    max(int(metrics["cer_chars"]), 1))
+        if (n + 1) % max(self.cfg.train.train_cer_every, 1) == 0:
+            return batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
+                             self.vocab)
+        return 0, 1
+
 
     # -- the loop shared by the trainers; the subclasses' hooks: ---------
-    # make_optimizer(), make_step(opt), fetch_fn(dataset) (draws one batch),
-    # run_step(step, state, batch, generator, beta) -> (state, loss, hyp,
-    # gold), and the learning rate the TRAIN line prints, ``logged_lr``
+    # make_optimizer(), make_step(opt), fetch(dataset, rng) (draws one
+    # batch from rng, default the dataset's), run_step(step, state, batch,
+    # generator, beta) -> (state, loss, hyp, gold, the step's metrics), and
+    # the learning rate the TRAIN line prints, ``logged_lr``
 
     def _build_state(self, opt, strict: bool = False) -> TrainState:
         """Seeded init (the discriminator's state built after the model's),
@@ -302,26 +364,35 @@ class TrainerBase:
               valid_sets: Sequence[SpectrogramDataset], start_it: int = 0,
               num_it: int = 1000, state: Optional[TrainState] = None,
               last_metrics: Optional[dict] = None) -> TrainState:
+        cfg = self.cfg
         opt = self.make_optimizer()
         step_fn = self.make_step(opt)
-        fetch = self.fetch_fn(train_dataset)
         if state is None:
-            fetch()  # the JAX trainer's init batch: keeps the stream aligned
+            # the JAX trainer's init batch: keeps the stream aligned
+            self.fetch(train_dataset)
             state = self._build_state(opt)
-        generator = torch.Generator(self.device).manual_seed(
-            self.cfg.train.seed)
+        generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
 
-        # the double buffer starts after the initial draw: two threads
-        # drawing from the dataset's RandomState would reorder the stream
-        prefetch = Prefetcher(fetch)
+        # the prefetch starts after the initial draw: two threads drawing
+        # from the dataset's RandomState would reorder the stream; several
+        # workers draw each iteration from its own RandomState
+        if cfg.train.prefetch_workers > 1:
+            prefetch = MultiWorkerPrefetcher(
+                lambda i: self.fetch(train_dataset,
+                                     iteration_rng(cfg.train.seed, i)),
+                cfg.train.prefetch_workers, start=start_it)
+        else:
+            prefetch = Prefetcher(lambda: self.fetch(train_dataset))
+        profiler = _IterationProfiler(cfg, self.device, start_it)
         try:
-            return self._loop(state, step_fn, prefetch, generator,
+            return self._loop(state, step_fn, prefetch, profiler, generator,
                               valid_sets, start_it, num_it, last_metrics)
         finally:
             prefetch.stop()
+            profiler.close()
 
-    def _loop(self, state, step_fn, prefetch, generator, valid_sets,
-              start_it, num_it, last_metrics) -> TrainState:
+    def _loop(self, state, step_fn, prefetch, profiler, generator,
+              valid_sets, start_it, num_it, last_metrics) -> TrainState:
         cfg = self.cfg
         stopper = EarlyStopper(cfg.train.early_stop)
         history: List[dict] = (last_metrics or {}).get("history", [])
@@ -334,6 +405,7 @@ class TrainerBase:
         failures = 0
         it = start_it
         while it < num_it:
+            profiler.at(it)
             # in-loop fault recovery (transient_trainer.py:364-377,
             # joint_trainer.py:391-405): a data error drops the batch,
             # refetches and keeps `it`
@@ -349,15 +421,11 @@ class TrainerBase:
             start_time = time.time()
             if cfg.train.beta_decay:  # meta_trainer.py:258-260
                 beta *= 0.99997
-            state, loss, hyp, gold = self.run_step(
+            state, loss, hyp, gold, m = self.run_step(
                 step_fn, state, batch, generator,
                 beta if cfg.train.beta_decay else 0.5)
             loss = float(loss)
-            if (it + 1) % max(cfg.train.train_cer_every, 1) == 0:
-                cer, nchar = batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
-                                       self.vocab)
-            else:
-                cer, nchar = 0, 1
+            cer, nchar = self._train_cer(hyp, gold, m, it)
             total_time += time.time() - start_time
             last_sum_loss.append(loss)
             last_sum_cer.append(cer)
@@ -404,6 +472,43 @@ class TrainerBase:
         return state
 
 
+class _IterationProfiler:
+    """``--profile-dir``: a torch.profiler trace (host and, on a card, the
+    device) from iteration ``start + 3`` to ``start + 8``, written as a
+    Chrome trace under the directory, then the JAX package's ``PROFILE
+    written to ...`` line (mtl_tpu/train/trainer.py:404-411). ``close()``
+    ends a trace still running when the loop stops early."""
+
+    def __init__(self, cfg: Config, device: torch.device, start_it: int):
+        self.dir, self.name = cfg.train.profile_dir, cfg.name
+        self.device, self.start = device, start_it
+        self.prof = None
+
+    def at(self, it: int) -> None:
+        if not self.dir:
+            return
+        if it == self.start + 3 and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif self.prof is not None and it == self.start + 8:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.dir, f"{self.name}_it{self.start + 4}.pt.trace.json"))
+        log_print(f"PROFILE written to {self.dir}")
+
+
 class TransientTrainer(TrainerBase):
     """Meta-transfer trainer (transient_trainer.py:79-377): the first-order
     meta step with the shared code-switched query, outer Adam at
@@ -428,18 +533,20 @@ class TransientTrainer(TrainerBase):
         if self.discriminator is not None:
             return make_meta_step_disc(self.model, self.discriminator,
                                        self.cfg, opt, self.per_task_query)
-        return make_meta_step(self.model, self.cfg, opt, self.per_task_query)
+        return make_meta_step(self.model, self.cfg, opt, self.per_task_query,
+                              space_id=self.space_id)
 
-    def fetch_fn(self, train_dataset: SpectrogramDataset):
+    def fetch(self, train_dataset: SpectrogramDataset, rng=None):
         cfg = self.cfg
-        return lambda: train_dataset.sample_meta_batch(
+        return train_dataset.sample_meta_batch(
             cfg.train.k_train, cfg.train.k_valid,
-            per_task_query=self.per_task_query)
+            per_task_query=self.per_task_query, rng=rng)
 
     def run_step(self, step_fn, state, batch, generator, beta):
         support, query = (batch_to_device(b, self.device) for b in batch)
         state, m = step_fn(state, support, query, generator, beta)
-        return state, m["outer_loss"], m["support_hyp"], m["support_gold"]
+        return (state, m["outer_loss"], m["support_hyp"], m["support_gold"],
+                m)
 
 
 class MetaTrainer(TransientTrainer):
@@ -516,19 +623,19 @@ class JointTrainer(TrainerBase):
         if self.discriminator is not None:
             return make_joint_step_disc(self.model, self.discriminator,
                                         self.cfg, opt)
-        return make_joint_step(self.model, self.cfg, opt)
+        return make_joint_step(self.model, self.cfg, opt,
+                               space_id=self.space_id)
 
-    def fetch_fn(self, train_dataset: SpectrogramDataset):
-        cfg = self.cfg
+    def fetch(self, train_dataset: SpectrogramDataset, rng=None):
         # the JAX trainer's draw: every task's k_train support batch and a
         # query of one utterance, which it drops
-        return lambda: train_dataset.sample_meta_batch(cfg.train.k_train,
-                                                       1)[0]
+        return train_dataset.sample_meta_batch(self.cfg.train.k_train, 1,
+                                               rng=rng)[0]
 
     def run_step(self, step_fn, state, batch, generator, beta):
         state, loss, aux = step_fn(state, batch_to_device(batch, self.device),
                                    generator, beta)
-        return state, loss, aux["hyp"], aux["gold"]
+        return state, loss, aux["hyp"], aux["gold"], aux
 
 
 class EpochTrainer(TrainerBase):
@@ -545,7 +652,8 @@ class EpochTrainer(TrainerBase):
               state: Optional[TrainState] = None) -> TrainState:
         cfg = self.cfg
         opt = make_epoch_optimizer(cfg)
-        step_fn = make_joint_step(self.model, cfg, opt)
+        step_fn = make_joint_step(self.model, cfg, opt,
+                                  space_id=self.space_id)
         generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
         stopper = EarlyStopper(cfg.train.early_stop)
         if state is None:
@@ -563,12 +671,8 @@ class EpochTrainer(TrainerBase):
                         state, batch_to_device(
                             {k: v[None] for k, v in batch.items()},
                             self.device), generator)
-                    if (n + 1) % max(cfg.train.train_cer_every, 1) == 0:
-                        cer, nchar = batch_cer(aux["hyp"].cpu().numpy(),
-                                               aux["gold"].cpu().numpy(),
-                                               self.vocab)
-                    else:
-                        cer, nchar = 0, 1
+                    cer, nchar = self._train_cer(aux["hyp"], aux["gold"], aux,
+                                                 n)
                 except Exception as e:
                     failures += 1
                     log_print(f"Error: {e!r}, skipping batch...")

@@ -15,7 +15,7 @@ from __future__ import annotations
 import unicodedata
 from typing import List, Sequence, Tuple
 
-from .edit_distance import distance
+from .edit_distance import distance, distance_batch
 
 
 def is_chinese_char(cc: str) -> bool:
@@ -56,8 +56,8 @@ def calculate_cer(s1: str, s2: str) -> int:
 
 
 def calculate_cer_batch(pairs: Sequence[Tuple[str, str]]) -> List[int]:
-    """Edit distances of (hyp, gold) string pairs."""
-    return [distance(a, b) for a, b in pairs]
+    """Edit distances of (hyp, gold) string pairs (one native call)."""
+    return distance_batch(pairs)
 
 
 def calculate_wer(s1: str, s2: str) -> int:

@@ -9,6 +9,7 @@ from torch import nn
 
 
 def compute_num_params(model: nn.Module) -> Tuple[int, int]:
-    """(trainable, non-trainable) parameter counts; every parameter of the
-    model is trained, so the second is 0, as in the JAX package."""
-    return sum(p.numel() for p in model.parameters()), 0
+    """(trainable, non-trainable) counts as the JAX package prints them:
+    every leaf of its variables, emb_cnn's BatchNorm statistics included
+    (the state_dict's entries here), in the first; the second is 0."""
+    return sum(t.numel() for t in model.state_dict().values()), 0

@@ -40,6 +40,7 @@ from mtl_tpu_torch.lm.fusion import LMScorer, save_lm_fusion
 from mtl_tpu_torch.lm.model import RNNLM
 from mtl_tpu_torch.models.decoder import reorder_caches
 from mtl_tpu_torch.models.transformer import ASRTransformer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LABELS = list("abcd efg") + ["中", "文"]
 MODEL_KW = dict(feat_extractor="vgg_cnn", num_enc_layers=1,

@@ -67,6 +67,7 @@ from mtl_tpu_torch.utils.checkpoint import save_checkpoint
 from tests.test_torch_port_joint import _lines, _params, _port_model, _tiny
 from tests.test_torch_port_lm_train import _same_line
 from tests.test_torch_port_maml import _port_cfg, assert_adam_params_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -39,7 +39,7 @@ from mtl_tpu_torch.data.dataset import SpectrogramDataset
 from mtl_tpu_torch.data.vocab import Vocab
 from mtl_tpu_torch.interop import (flax_params_to_torch, noam_state_from_optax,
                                    noam_state_to_optax, torch_to_flax_params)
-from mtl_tpu_torch.train.optim import (Adam, NoamAdam, NoamState,
+from mtl_tpu_torch.train.optim import (SGD, Adam, NoamAdam, NoamState,
                                        make_epoch_optimizer, noam_schedule,
                                        restore_opt_state)
 from mtl_tpu_torch.utils.checkpoint import load_checkpoint_meta, \
@@ -47,6 +47,7 @@ from mtl_tpu_torch.utils.checkpoint import load_checkpoint_meta, \
 from tests.test_torch_port_joint import _params, _tiny
 from tests.test_torch_port_lm_train import _same_line
 from tests.test_torch_port_maml import _port_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -143,7 +144,8 @@ def test_noam_adam_matches_optax_and_round_trips():
 
 def test_epoch_optimizer_is_noam_at_dim_input():
     """d is the config's ``dim_input`` (5120 for vgg_cnn over 161 bins),
-    as the JAX package passes it; ``--loss ctc`` is refused."""
+    as the JAX package passes it; under ``--loss ctc`` it is nesterov SGD
+    at ``lr`` and ``momentum``, whose first two updates equal JAX's."""
     jcfg = _tiny(JaxConfig())
     jcfg.train.warmup = 10
     cfg = _port_cfg(jcfg)
@@ -157,9 +159,19 @@ def test_epoch_optimizer_is_noam_at_dim_input():
     opt.update({"w": torch.ones(2)}, opt.init(p), p)
     np.testing.assert_allclose(p["w"].numpy(), np.asarray(upd["w"]),
                                rtol=1e-6)
-    cfg.train.loss = "ctc"
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_epoch_optimizer(cfg)
+    cfg.train.loss = jcfg.train.loss = "ctc"
+    cfg.train.lr = jcfg.train.lr = 0.1
+    opt, jtx = make_epoch_optimizer(cfg), jax_epoch_optimizer(jcfg)
+    assert isinstance(opt, SGD) and opt.nesterov
+    assert opt.momentum == cfg.train.momentum == 0.9
+    w, p = {"w": jnp.zeros(2)}, {"w": torch.zeros(2)}
+    jstate, state = jtx.init(w), opt.init(p)
+    for g in ([1.0, -2.0], [0.5, 3.0]):
+        upd, jstate = jtx.update({"w": jnp.asarray(g)}, jstate, w)
+        w = optax.apply_updates(w, upd)
+        opt.update({"w": torch.tensor(g)}, state, p)
+        np.testing.assert_allclose(p["w"].numpy(), np.asarray(w["w"]),
+                                   rtol=1e-6)
 
 
 def _epoch_lines(out):

@@ -20,6 +20,7 @@ from mtl_tpu.ops import frontend as jfe
 from mtl_tpu_torch.data.dataset import collate_audio
 from mtl_tpu_torch.ops import frontend as fe
 from mtl_tpu_torch.ops.stft import stft_logmag
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SR, N_FFT, HOP = 16000, 320, 160
 

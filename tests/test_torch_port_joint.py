@@ -53,6 +53,7 @@ from mtl_tpu_torch.train.optim import (SGD, Adam, AdamState, SGDState,
 from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
                                        make_joint_step)
 from mtl_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-5, atol=1e-5)

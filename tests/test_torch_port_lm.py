@@ -37,6 +37,7 @@ from mtl_tpu_torch.lm import data as port_data
 from mtl_tpu_torch.lm.fusion import LMScorer, save_lm_fusion
 from mtl_tpu_torch.lm.model import RNNLM
 from mtl_tpu_torch.lm.train import evaluate_lm, evaluate_lm_test
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -36,6 +36,7 @@ from mtl_tpu_torch.interop import lm_params_to_torch
 from mtl_tpu_torch.lm import train as port_train
 from mtl_tpu_torch.lm.data import Corpus, LMDataset, batchify, get_batch
 from mtl_tpu_torch.lm.model import RNNLM
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LR, CLIP, BPTT, BATCH, FACTOR = 20.0, 0.25, 5, 3, 3.0
 RATIOS = port_train.joint_ratios(3, 0.8)

@@ -23,6 +23,7 @@ from mtl_tpu_torch.config import Config
 from mtl_tpu_torch.decode.greedy import greedy_decode_ids
 from mtl_tpu_torch.interop import flax_params_to_torch, torch_to_flax_params
 from mtl_tpu_torch.models.transformer import build_model
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 11
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -31,6 +31,7 @@ from mtl_tpu_torch.config import Config
 from mtl_tpu_torch.data.vocab import Vocab
 from mtl_tpu_torch.interop import flax_params_to_torch
 from mtl_tpu_torch.utils.checkpoint import save_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tiny_config(name, save_folder):

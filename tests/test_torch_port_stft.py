@@ -25,6 +25,7 @@ from mtl_tpu_torch.data.dataset import collate_audio
 from mtl_tpu_torch.ops import frontend as fe
 from mtl_tpu_torch.ops import native
 from mtl_tpu_torch.ops import stft as st
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SR = 16000
 

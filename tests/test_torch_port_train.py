@@ -36,6 +36,7 @@ from mtl_tpu_torch.models.transformer import build_model
 from mtl_tpu_torch.train.optim import Adam
 from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
                                        make_meta_step)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -743,9 +744,7 @@ def test_early_stopper_parity():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("mesh.data", 2), ("train.prefetch_workers", 2), ("train.device_cer", True),
-    ("train.profile_dir", "/x"),
-    ("train.second_order", True), ("model.remat", True),
+    ("mesh.data", 2), ("train.second_order", True), ("model.remat", True),
     ("model.remat_conv", True)])
 def test_unported_training_options_raise(flag, value):
     from mtl_tpu_torch.train.trainer import check_ported
@@ -756,6 +755,20 @@ def test_unported_training_options_raise(flag, value):
     with pytest.raises(ValueError, match="not ported yet"):
         check_ported(cfg)
     check_ported(Config())
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("train.prefetch_workers", 2), ("train.device_cer", True),
+    ("train.profile_dir", "/x")])
+def test_ported_training_options_are_accepted(flag, value):
+    """The three options refused until the training-options slice are
+    accepted now (their behaviour: tests/test_torch_port_options.py)."""
+    from mtl_tpu_torch.train.trainer import check_ported
+
+    cfg = Config()
+    group, name = flag.split(".")
+    setattr(getattr(cfg, group), name, value)
+    check_ported(cfg)
 
 
 def test_batch_cer_matches_jax(corpus):

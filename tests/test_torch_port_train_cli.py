@@ -39,6 +39,7 @@ from mtl_tpu_torch.data.vocab import Vocab
 from mtl_tpu_torch.interop import adam_state_from_optax, flax_params_to_torch
 from mtl_tpu_torch.utils.checkpoint import (load_checkpoint, load_train_state,
                                             save_checkpoint)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _lines(out):

@@ -39,6 +39,7 @@ from mtl_tpu.ops import vgg_pallas as vp
 from mtl_tpu_torch.ops.vgg import (pack_block1_tc, pack_block2_tc,
                                    vgg_block1, vgg_block2, vgg_block_plain,
                                    vgg_stack)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 
@@ -276,3 +277,34 @@ def test_tc_weight_packing(block, c_in, c):
     err = (got.float() - ref.float()).abs()
     assert got.shape == ref.shape
     assert bool((err <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -10).all())
+
+
+def test_plain_block_routes_a_tied_max_as_flax():
+    """A 2 x 2 window whose maximum is tied: the plain version's gradient
+    goes to the element flax's max_pool picks (the first in (freq, time)
+    order), as the JAX package's VJP does. Convs that pass their input
+    through (centre tap 1, bias 0) keep the planted ties."""
+    import jax
+
+    x = np.zeros((1, 4, 4), np.float32)  # [B, T, F]
+    x[0, 1, 0] = x[0, 0, 1] = 1.0  # tie at (t1, f0) and (t0, f1)
+    x[0, 2, 2] = x[0, 3, 3] = x[0, 3, 2] = 2.0  # a three-way tie
+    w1 = np.zeros((3, 3, 1, 1), np.float32)
+    w1[1, 1] = 1.0
+    b = np.zeros(1, np.float32)
+    seed = np.arange(1, 5, dtype=np.float32).reshape(1, 2, 2, 1)
+
+    def flax_out(x_):
+        params = {f"Conv_{i}": {"kernel": jnp.asarray(w1),
+                                "bias": jnp.asarray(b)} for i in range(2)}
+        y = _VGGBlockStack((1,), dtype=jnp.float32).apply(
+            {"params": params}, jnp.transpose(x_, (0, 2, 1))[..., None])
+        return (jnp.transpose(y, (0, 2, 1, 3)) * seed).sum()
+
+    want = np.asarray(jax.grad(flax_out)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    w, bt = torch.from_numpy(w1), torch.from_numpy(b)
+    y = vgg_block_plain(xt, w, bt, w, bt, out_dtype=torch.float32)
+    (y * torch.from_numpy(seed)).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+    assert want[0, 1, 0] == 1.0 and want[0, 0, 1] == 0.0
