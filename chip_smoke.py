@@ -133,7 +133,29 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
 23. f32 parity, card against CPU: an emb_cnn CTC epoch step (loss,
    gradients, params after nesterov SGD, the BatchNorm running statistics
    after it), the log-fbank features, the device CER;
-24. prints the kernels as one JSON line and, last, the result line.
+24. serves a seeded checkpoint at BASELINE.json configs[4]'s width (a
+   17-block Conformer at d_model 1024, 8 heads, the decoder's d_k = d_v =
+   128, d_inner 2048, d_emb 1024, 4 decoder layers, vgg_cnn, bf16) with
+   ``test_main`` greedily over phase 6's 20 utterances in batches of 8: the
+   FFT STFT and both bf16 VGG kernels once a batch; prints utterances/s;
+25. trains that width by first-order meta-transfer with ``--remat``
+   through ``meta_transfer_train_main`` (K 3 x (8 + 8) utterances of the
+   phase-9 corpus, 3 steps): every loss finite, both bf16 VGG kernels and
+   the stack's backward at least 2K a step, the FFT STFT K + 1; then one
+   step timed and profiled (step ms, busy share, peak memory);
+26. configs[4]'s training mode, ``--second-order --remat`` meta-transfer
+   at that width through ``meta_transfer_train_main`` (K 3 x (8 + 8), 4
+   steps): every loss finite, the FFT STFT K + 1 a step, no VGG kernel and
+   no stack backward (second order takes the plain route); one step timed
+   and profiled; then one second-order MAML step through
+   ``meta_train_main`` at the flagship width;
+27. f32 on the card against the CPU: one second-order meta step at the
+   flagship width with ``--clip`` (loss, outer gradients, params after
+   Adam, as phase 10), the Conformer encoder at configs[4]'s width; and
+   ``--remat --remat-conv`` on against off at that width (bf16, dropout
+   0.1: equal loss and generator state, gradients within one bf16 ulp of
+   the largest);
+28. prints the kernels as one JSON line and, last, the result line.
 
 Phase 3b holds both routes of both VGG blocks at the log-fbank shapes
 (80 bins into block 1, 40 into block 2) against their plain versions and
@@ -1145,13 +1167,15 @@ def _time_steps(torch, fn, n):
     return ms
 
 
-def _profile_once(torch, fn):
+def _profile_once(torch, fn, host=True):
     """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
-    device ms by kernel name, the profiler's events)."""
+    device ms by kernel name, the profiler's events). ``host=False``
+    records the device's kernels alone (a step of ~10^5 host ops takes
+    the profiler tens of seconds to read back)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1318,14 +1342,15 @@ def _per_iteration(out):
     return per_it[len(per_it) // 2] * 1e3
 
 
-def _finite_losses(out, n, what):
+def _finite_losses(out, n, what, evaluated=True):
     """The TRAIN LOSS values of ``out``; there must be ``n``, all finite,
-    and every VALID loss finite too."""
+    and (a run that ``evaluated``) VALID losses, all finite too."""
     losses = [float(x) for x in re.findall(r"TRAIN LOSS:(\S+)", out)]
     valid = [float(x) for x in re.findall(r"VALID (?:SET \d+ )?LOSS:(\S+)",
                                           out)]
     check(len(losses) == n and all(map(math.isfinite, losses + valid))
-          and valid, f"{what}: losses {losses}, valid {valid}")
+          and bool(valid) == evaluated,
+          f"{what}: losses {losses}, valid {valid}")
     return losses
 
 
@@ -1342,25 +1367,26 @@ def _check_counts(counts, need, what, forward=("vgg_block1", "vgg_block2",
     print(f"launches in the {what}: {counts}", flush=True)
 
 
-def _time_and_profile(torch, what, fn, n_batches_note):
-    """Times 5 calls of ``fn`` (host clock, each ended by a synchronize;
-    median after the first), the peak memory beside what was allocated
-    before the first call (earlier phases' garbage collected first), and
-    profiles a sixth."""
+def _time_and_profile(torch, what, fn, n_batches_note, n=5, host=True):
+    """Times ``n`` calls of ``fn`` (host clock, each ended by a
+    synchronize; median after the first), the peak memory beside what was
+    allocated before the first call (earlier phases' garbage collected
+    first), and profiles one more."""
     import gc
 
     gc.collect()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 2 ** 20
     torch.cuda.reset_peak_memory_stats()
-    ms = _time_steps(torch, fn, 5)
+    ms = _time_steps(torch, fn, n)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     steady = sorted(ms[1:])
+    median = (steady[(n - 2) // 2] + steady[(n - 1) // 2]) / 2
     print(f"{what} ({n_batches_note}): " + ", ".join(f"{v:.3f}" for v in ms)
-          + f" ms; median after the first {(steady[1] + steady[2]) / 2:.3f} "
+          + f" ms; median after the first {median:.3f} "
           f"ms; peak memory {peak:.1f} MiB ({held:.1f} MiB allocated before "
           f"the first step: weights, batches)", flush=True)
-    wall_ms, busy, by_name, prof = _profile_once(torch, fn)
+    wall_ms, busy, by_name, prof = _profile_once(torch, fn, host)
     print(f"profiled {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} "
           f"ms, busy share {busy / wall_ms:.4f}; device ms by group: "
           f"{_by_group(by_name)}", flush=True)
@@ -2014,6 +2040,307 @@ def slice_parity(torch, dev, corpus):
     return counts
 
 
+# -- the Conformer at BASELINE.json configs[4]'s width, second order, remat --
+
+# bench.py:run_stretch_bench's configs[4] without its sharding: a 17-layer
+# Conformer at d_model 1024 (8 heads; the decoder's d_k = d_v = 128,
+# d_inner 2048, d_emb 1024), vgg_cnn, 4 decoder layers, bf16
+CONFORMER_FLAGS = [
+    "--feat_extractor", "vgg_cnn", "--encoder-type", "conformer",
+    "--num-enc-layers", "17", "--num-dec-layers", "4", "--num-heads", "8",
+    "--dim-model", "1024", "--dim-key", "128", "--dim-value", "128",
+    "--dim-inner", "2048", "--dim-emb", "1024", "--r", "100", "--dtype",
+    "bfloat16"]
+CONFORMER_FO_STEPS, CONFORMER_SO_STEPS = 3, 4
+
+
+def _free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def conformer_serve(torch, dev, corpus_dir, models_dir):
+    """Phase 24: a seeded checkpoint at configs[4]'s width served greedily
+    by ``test_main`` on cuda over phase 6's 20 utterances in batches of 8,
+    the counts zeroed before and read after: the FFT STFT and both bf16 VGG
+    kernels once a batch, the direct STFT never. Returns the launch
+    counts."""
+    from mtl_tpu_torch.cli.asr import test_main
+    from mtl_tpu_torch.config import build_parser, config_from_args
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    labels = os.path.join(corpus_dir, "labels.json")
+    cfg = config_from_args(build_parser("").parse_args(
+        CONFORMER_FLAGS + ["--labels-path", labels]))
+    cfg.name, cfg.save_folder = "chip_conformer", models_dir
+    vocab = Vocab.from_json(labels)
+    model = build_model(cfg, len(vocab))
+    init_weights(model, torch.Generator().manual_seed(SEED + 9))
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    ckpt = save_checkpoint(cfg, vocab, model.state_dict(), step=0,
+                           best_model=True)
+    del model
+    print(f"Conformer checkpoint (configs[4] width): {n_params} params, "
+          f"saved in {time.perf_counter() - t0:.1f} s", flush=True)
+    res, out, wall, counts = _run_cli(
+        torch, test_main, [
+            "--test-manifest-list", os.path.join(corpus_dir,
+                                                 "manifest_task0.csv"),
+            "--labels-path", labels, "--continue-from", ckpt, "--device",
+            dev.type, "--k-valid", "8", "--k-test", "8"],
+        WORK, "chip_conformer_test")
+    total = [ln for ln in out.splitlines() if ln.startswith("TOTAL CER")]
+    preds = [ln for ln in out.splitlines() if ln.startswith("PRED:")]
+    batches = math.ceil(UTTERANCES / 8)
+    check(len(total) == 1 and len(preds) == UTTERANCES
+          and res["utterances"] == UTTERANCES
+          and all(math.isfinite(res[k]) for k in ("cer", "wer")),
+          f"Conformer serving: {len(preds)} PRED lines, {total}")
+    check(counts["stft_logmag"] == counts["vgg_block1"]
+          == counts["vgg_block2"] == batches
+          and counts["stft_logmag_direct"] == 0,
+          f"Conformer serving must launch the FFT STFT and both bf16 VGG "
+          f"kernels once a batch ({batches}): {counts}")
+    print(f"{total[0]}\nConformer served {UTTERANCES} utterances greedily "
+          f"in {wall:.3f} s: {UTTERANCES / wall:.3f} utterances/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+          f"launches {counts}", flush=True)
+    _free(torch)
+    return counts
+
+
+def _conformer_argv(dev, corpus, models, *extra):
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    # no evaluation or checkpoint inside the run: the steps are the phase
+    return (["--train-manifest-list", *manifests, "--valid-manifest-list",
+             manifests[-1], "--labels-path", os.path.join(corpus,
+                                                          "labels.json"),
+             "--device", dev.type, "--k-train", str(K_SHOT), "--k-valid",
+             str(K_SHOT), "--evaluate-every", "1000", "--save-every", "1000",
+             "--dropout", "0.1", "--save-folder", models, "--src-buckets",
+             "800"] + CONFORMER_FLAGS + list(extra))
+
+
+def _time_meta_step(torch, dev, corpus, argv, name, what, note,
+                    per_task_query=False):
+    """One meta step of the flags ``argv`` on device-side batches, timed
+    (median of 3 after a first) and profiled (the device alone)."""
+    from mtl_tpu_torch.train.optim import make_meta_optimizers
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                name)
+    batches = [[batch_to_device(b, dev) for b in ds.sample_meta_batch(
+        K_SHOT, K_SHOT, per_task_query=per_task_query)] for _ in range(5)]
+    _, opt = make_meta_optimizers(cfg)
+    state = init_train_state(model, opt)
+    step = make_meta_step(model, cfg, opt, per_task_query=per_task_query)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    it = iter(batches)
+    _time_and_profile(
+        torch, what,
+        lambda: float(step(state, *next(it, batches[-1]), gen)[1][
+            "outer_loss"]), note, n=4, host=False)
+    del state, step, model, batches
+    _free(torch)
+
+
+def conformer_train(torch, dev, work, corpus):
+    """Phase 25: first-order meta-transfer at configs[4]'s width with
+    ``--remat`` through ``meta_transfer_train_main`` on cuda, K 3 x (8 + 8)
+    utterances of the phase-9 corpus, 3 steps; the counts zeroed before
+    and read after: both bf16 VGG kernels and the stack's backward at least
+    2K a step, the FFT STFT K + 1 a step. Then one step timed and
+    profiled. Returns the launch counts."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+
+    argv = _conformer_argv(dev, corpus, os.path.join(work, "conf_models"),
+                           "--remat")
+    state, out, wall, counts = _run_cli(
+        torch, meta_transfer_train_main,
+        argv + ["--epochs", str(CONFORMER_FO_STEPS)], work,
+        "chip_conformer_meta")
+    _finite_losses(out, CONFORMER_FO_STEPS, "Conformer meta run", False)
+    check(state.step == CONFORMER_FO_STEPS, f"step {state.step}")
+    del state
+    _free(torch)
+    _check_counts(counts, 2 * K_TASKS * CONFORMER_FO_STEPS,
+                  "Conformer meta run (first order, --remat)",
+                  forward=("vgg_block1", "vgg_block2", "vgg_stack_bwd"))
+    check(counts["stft_logmag"] == (K_TASKS + 1) * CONFORMER_FO_STEPS,
+          f"Conformer meta run STFT launches: {counts}")
+    print(f"Conformer meta run: {CONFORMER_FO_STEPS} first-order meta steps "
+          f"(K {K_TASKS}, {K_SHOT} + {K_SHOT}, bf16, --remat) in "
+          f"{wall:.3f} s; TOTAL TIME per iteration after the first: median "
+          f"{_per_iteration(out):.3f} ms", flush=True)
+    _time_meta_step(torch, dev, corpus, argv, "chip_conformer_timing",
+                    "Conformer meta step (first order, --remat)",
+                    f"configs[4] width, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}")
+    return counts
+
+
+def conformer_second_order(torch, dev, work, corpus):
+    """Phase 26: configs[4]'s training mode, ``--second-order --remat``
+    meta-transfer at its width through ``meta_transfer_train_main``, K 3 x
+    (8 + 8), 4 steps; the counts zeroed before and read after: the FFT
+    STFT K + 1 a step, no VGG kernel and no ``vgg_stack_bwd`` (the plain
+    route of second order). One step timed and profiled. Then one
+    second-order MAML step through ``meta_train_main`` at the flagship
+    width (its own query a task: the STFT 2K, no VGG kernel). Returns the
+    meta-transfer run's launch counts."""
+    from mtl_tpu_torch.cli.asr import meta_train_main, \
+        meta_transfer_train_main
+
+    argv = _conformer_argv(dev, corpus, os.path.join(work, "conf_models"),
+                           "--remat", "--second-order")
+    state, out, wall, counts = _run_cli(
+        torch, meta_transfer_train_main,
+        argv + ["--epochs", str(CONFORMER_SO_STEPS)], work,
+        "chip_conformer_second_order")
+    _finite_losses(out, CONFORMER_SO_STEPS, "second-order Conformer run",
+                   False)
+    check(state.step == CONFORMER_SO_STEPS, f"step {state.step}")
+    del state
+    _free(torch)
+    vgg = [k for k in ("vgg_block1", "vgg_block2", "vgg_block1_f32",
+                       "vgg_block2_f32", "vgg_stack_bwd") if counts[k]]
+    check(counts["stft_logmag"] == (K_TASKS + 1) * CONFORMER_SO_STEPS
+          and not vgg and counts["stft_logmag_direct"] == 0,
+          f"the second-order run must launch the FFT STFT K + 1 a step and "
+          f"no VGG kernel nor the stack's backward: {counts}")
+    print(f"second-order Conformer run: {CONFORMER_SO_STEPS} meta steps "
+          f"(K {K_TASKS}, {K_SHOT} + {K_SHOT}, bf16, --second-order --remat)"
+          f" in {wall:.3f} s; TOTAL TIME per iteration after the first: "
+          f"median {_per_iteration(out):.3f} ms; launches {counts}",
+          flush=True)
+    _time_meta_step(torch, dev, corpus, argv, "chip_conformer_so_timing",
+                    "second-order Conformer meta step (--remat)",
+                    f"configs[4] width, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}")
+
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    maml_argv = _asr_train_argv(dev, manifests, os.path.join(
+        corpus, "labels.json"), os.path.join(work, "maml_so_models")) + [
+        "--second-order", "--epochs", "1", "--evaluate-every", "1000",
+        "--save-every", "1000"]
+    state, out, wall, mcounts = _run_cli(torch, meta_train_main, maml_argv,
+                                         work, "chip_maml_second_order")
+    _finite_losses(out, 1, "second-order MAML run", False)
+    vgg = [k for k in ("vgg_block1", "vgg_block2", "vgg_block1_f32",
+                       "vgg_block2_f32", "vgg_stack_bwd") if mcounts[k]]
+    check(state.step == 1 and "Meta Trainer is initialized" in out
+          and mcounts["stft_logmag"] == 2 * K_TASKS and not vgg,
+          f"second-order MAML: step {state.step}, launches {mcounts}")
+    print(f"second-order MAML step (flagship width, K {K_TASKS}, {K_SHOT} + "
+          f"{K_SHOT} own query) through meta_train_main in {wall:.3f} s; "
+          f"launches {mcounts}", flush=True)
+    del state
+    _free(torch)
+    return counts
+
+
+def conformer_parity(torch, dev, corpus):
+    """Phase 27, f32 on the card against the CPU and remat on the card:
+    (a) one second-order meta step at the flagship Transformer width,
+    dropout 0, ``--clip``, as phase 10 (loss, outer gradients, the params
+    after Adam) with no VGG kernel launched; (b) the Conformer encoder at
+    configs[4]'s width on 2 rows of 100 frames (one padded to 70): rtol /
+    atol 1e-3 (f32, TF32 off, summation order only over 17 blocks); (c)
+    at configs[4]'s width, bf16, dropout 0.1, one task batch's loss and
+    gradients with ``--remat --remat-conv`` against without, one CUDA
+    generator seed: equal loss and generator state, gradients within 2^-8
+    of the largest (one bf16 ulp of it: cuBLAS may pick another bf16 GEMM
+    algorithm for the recompute's buffers; a mask drawn anew in the
+    recompute moves them by far more)."""
+    from mtl_tpu_torch.config import build_parser, config_from_args
+    from mtl_tpu_torch.models.conformer import ConformerEncoder
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.train.optim import Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_forward_fn, make_meta_step)
+
+    cfg, vocab, support, query, weights, _ = _parity_inputs(torch, corpus)
+    cfg.train.second_order, cfg.train.clip = True, True
+    lr = cfg.train.meta_lr
+
+    def run(model, opt, d):
+        state = init_train_state(model, opt)
+        _, m = make_meta_step(model, cfg, opt)(
+            state, batch_to_device(support, d), batch_to_device(query, d))
+        return m["outer_loss"]
+
+    counts = _step_parity(torch, dev, cfg, vocab, weights, run,
+                          (("adam", lr, lambda: Adam(lr)),),
+                          "second-order train")
+    vgg = [k for k in ("vgg_block1", "vgg_block2", "vgg_block1_f32",
+                       "vgg_block2_f32", "vgg_stack_bwd") if counts[k]]
+    check(counts["stft_logmag"] >= 1 and not vgg,
+          f"the f32 second-order step must run the STFT and no VGG kernel: "
+          f"{counts}")
+    print(f"launches in the f32 second-order parity run: {counts}",
+          flush=True)
+
+    enc = ConformerEncoder(17, 8, 1024, 5120, dropout=0.0,
+                           dtype=torch.float32)
+    init_weights(enc, torch.Generator().manual_seed(SEED + 10))
+    rng = np.random.RandomState(SEED + 10)
+    x = torch.from_numpy(rng.randn(2, 100, 5120).astype(np.float32))
+    lengths = torch.tensor([100, 70])
+    with torch.no_grad():
+        want = enc(x, lengths)
+        got = enc.to(dev)(x.to(dev), lengths.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    check(bool((got[1, 70:] == 0).all()), "padded Conformer frames")
+    print(f"Conformer encoder parity (f32, 17 blocks, d 1024, 2 x 100 "
+          f"frames): max_abs_err {float((got - want).abs().max()):.3e} of "
+          f"max {float(want.abs().max()):.3e}", flush=True)
+    del enc, x, got, want
+    _free(torch)
+
+    rcfg = config_from_args(build_parser("").parse_args(
+        CONFORMER_FLAGS + ["--dropout", "0.1", "--labels-path",
+                           os.path.join(corpus, "labels.json")]))
+    batch = {k: torch.from_numpy(v[0]).to(dev) for k, v in support.items()}
+    runs = []
+    for on in (False, True):
+        rcfg.model.remat = rcfg.model.remat_conv = on
+        model = build_model(rcfg, len(vocab), dev)
+        init_weights(model, torch.Generator().manual_seed(SEED + 11))
+        gen = torch.Generator(dev).manual_seed(SEED + 11)
+        native.reset_launch_counts()
+        loss, _ = make_forward_fn(model, rcfg)(None, batch, gen, False)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), [g.float() for g in grads],
+                     gen.get_state(), dict(native.launch_counts)))
+        del model, loss, grads
+        _free(torch)
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = runs
+    scale = max(float(g.abs().max()) for g in g0)
+    gerr = max(float((a - b).abs().max()) for a, b in zip(g1, g0))
+    check(torch.equal(l0, l1) and torch.equal(s0, s1)
+          and gerr <= 2.0 ** -8 * scale,
+          f"--remat on vs off: loss {float(l0)} / {float(l1)}, generator "
+          f"equal {torch.equal(s0, s1)}, gradients differ by {gerr}")
+    check(c1["vgg_block1"] == 2 * c0["vgg_block1"] == 2,
+          f"--remat-conv reruns the VGG kernels in the recompute: {c0} "
+          f"{c1}")
+    print(f"remat parity (configs[4] width, bf16, dropout 0.1, 2 "
+          f"utterances of 400 frames): loss {float(l0):.6f} equal, "
+          f"generator state equal, gradients max_abs_err {gerr:.3e} of max "
+          f"{scale:.3e}; launches off {c0} on {c1}", flush=True)
+    return counts
+
+
 LM_WORDS, LM_TOKENS = (12000, 8000), 100_000
 
 
@@ -2436,6 +2763,18 @@ def main():
     print(f"options, emb_cnn + CTC and log-fbank phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 24. the Conformer at configs[4]'s width served; 25. first-order
+    # meta-transfer with --remat; 26. configs[4]'s training mode (second
+    # order, remat) and a second-order MAML step; 27. their f32 parity and
+    # remat on the card
+    t0 = time.perf_counter()
+    conformer_serve(torch, dev, corpus_dir, os.path.join(WORK, "models"))
+    conformer_train(torch, dev, WORK, train_corpus)
+    conformer_second_order(torch, dev, WORK, train_corpus)
+    conformer_parity(torch, dev, train_corpus)
+    print(f"Conformer, second-order and remat phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the STFT on the served path, the f32 VGG kernels on the
     # f32 parity path
@@ -2447,7 +2786,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 24. results
+    # 28. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -1,9 +1,9 @@
 """ASR CLI entry points of the port (mtl_tpu/cli/asr.py parity).
 
-* ``meta_transfer_train_main`` — meta_transfer_train.py: the first-order
-  meta-transfer trainer (``TransientTrainer``), then with
-  ``--num-meta-test N`` meta-test at the final weights, console script
-  ``mtl-torch-meta-transfer-train``;
+* ``meta_transfer_train_main`` — meta_transfer_train.py: the meta-transfer
+  trainer (``TransientTrainer``; first order, or with ``--second-order``
+  through the inner step), then with ``--num-meta-test N`` meta-test at
+  the final weights, console script ``mtl-torch-meta-transfer-train``;
 * ``meta_train_main`` — the same with MAML's per-task queries
   (``MetaTrainer``; the JAX package gives it no console script either);
 * ``joint_train_main`` — joint_train.py: the joint trainer
@@ -19,6 +19,8 @@
 * the trainers take the adversarial or multitask discriminator head with
   ``--adversarial`` / ``--multitask`` (``--beta-decay``, ``--lr-disc``,
   ``--num-class``);
+* every entry point takes ``--encoder-type conformer`` and every trainer
+  ``--remat`` / ``--remat-conv``;
 * ``test_main`` — test.py: greedy or beam decode (``--beam-search``,
   optionally with LM shallow fusion, ``--lm-rescoring --lm-path``) of the
   test manifests from a port checkpoint, CER/WER + EN/ZH CER report.
@@ -74,7 +76,7 @@ def _discriminator(cfg, device):
 def meta_transfer_train_main(argv=None, trainer_cls=TransientTrainer):
     """meta_transfer_train.py parity (mtl_tpu/cli/asr.py:50-75): builds
     the vocab, datasets and model (from the checkpoint's config with
-    ``--continue-from``), runs the first-order meta-transfer trainer (or
+    ``--continue-from``), runs the meta-transfer trainer (or
     ``trainer_cls``) on ``--device``, then ``--num-meta-test`` trials of
     meta-test at the final weights. Returns the final ``TrainState``."""
     parser = build_parser("Transformer ASR meta training (PyTorch port)")

@@ -7,7 +7,8 @@ onto the port's state_dict; ``torch_to_flax_params`` maps it back. The rules
 conv-flatten permutation: the port flattens (f, c) f-major like the JAX
 package):
 
-* ``layers_{i}`` -> ``layers.{i}``; ``conv/conv/Conv_{i}`` -> ``conv.convs.{i}``;
+* ``layers_{i}`` -> ``layers.{i}``; the Conformer's ``block_{i}`` ->
+  ``blocks.{i}``; ``conv/conv/Conv_{i}`` -> ``conv.convs.{i}``;
 * emb_cnn's ``conv/conv/BatchNorm_{i}``: ``scale`` and ``bias`` (params)
   and ``mean`` and ``var`` (the ``batch_stats`` collection) ->
   ``conv.bns.{i}.{scale,bias,mean,var}`` (the last two buffers);
@@ -16,7 +17,13 @@ package):
 * ``trg_embedding/embedding`` -> ``trg_embedding.weight`` as is (the PAD
   row is zeroed at lookup, not in the weights);
 * conv ``kernel`` keeps the flax HWIO layout [kf, kt, C_in, C_out], which
-  the port's VGG kernels take.
+  the port's VGG kernels take;
+* the Conformer's depthwise conv ``dw``: flax's 1-D kernel [k, 1, C] ->
+  ``weight`` [C, 1, k], torch's conv1d layout. The rest of the Conformer
+  (``encoder/input_linear``, ``final_norm``, each block's ``ff1``/``ff2``
+  ``LayerNorm_0``/``Dense_0``/``Dense_1``, ``attn`` ``LayerNorm_0``/``q``/
+  ``k``/``v``/``out``, ``conv`` ``LayerNorm_0``/``pw1``/``norm``/``pw2``)
+  keeps flax's names and maps by the Dense and LayerNorm rules.
 
 The training state moves the same way: optax Adam's ``mu`` and ``nu`` are
 trees shaped like the params, so they map by the same rules onto the port's
@@ -77,7 +84,8 @@ def _torch_key(path) -> str:
     if mods[0] == "conv":  # conv/conv/{Conv,BatchNorm}_{i}/{leaf}
         kind, i = mods[2].rsplit("_", 1)
         return f"conv.{'convs' if kind == 'Conv' else 'bns'}.{i}.{leaf}"
-    mods = [re.sub(r"^layers_(\d+)$", r"layers.\1", m) for m in mods]
+    mods = [re.sub(r"^layers_(\d+)$", r"layers.\1",
+                   re.sub(r"^block_(\d+)$", r"blocks.\1", m)) for m in mods]
     leaf = {"kernel": "weight", "scale": "weight",
             "embedding": "weight"}.get(leaf, leaf)
     return ".".join(mods + [leaf])
@@ -89,6 +97,8 @@ def _tree_to_torch(tree) -> Dict[str, torch.Tensor]:
         a = np.asarray(v, np.float32)
         if path[-1] == "kernel" and a.ndim == 2:
             a = a.T
+        elif path[-1] == "kernel" and a.ndim == 3:  # [k, 1, C] -> [C, 1, k]
+            a = a.transpose(2, 1, 0)
         # a copy: the tree's arrays may be read-only views of device buffers
         sd[_torch_key(path)] = torch.from_numpy(np.array(a, order="C"))
     return sd
@@ -122,12 +132,15 @@ def torch_to_flax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
         else:
             path = []
             for p in parts:
-                if p.isdigit() and path and path[-1] == "layers":
-                    path[-1] = f"layers_{p}"
+                if p.isdigit() and path and path[-1] in ("layers", "blocks"):
+                    kind = "block" if path[-1] == "blocks" else "layers"
+                    path[-1] = f"{kind}_{p}"
                 else:
                     path.append(p)
             if path[-1] == "weight":
-                if a.ndim == 2 and path[-2] != "trg_embedding":
+                if a.ndim == 3:  # the depthwise conv: [C, 1, k] -> [k, 1, C]
+                    path[-1], a = "kernel", a.transpose(2, 1, 0)
+                elif a.ndim == 2 and path[-2] != "trg_embedding":
                     path[-1], a = "kernel", a.T
                 elif a.ndim == 2:
                     path[-1] = "embedding"

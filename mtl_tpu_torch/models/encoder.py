@@ -7,7 +7,8 @@ it, mtl_tpu/models/encoder.py:4-5), then ``num_layers`` x [self-attention
 -> *non_pad_mask -> post-LN FFN -> *non_pad_mask]. The masks come from the
 lengths the caller passes: the raw, un-downsampled frame counts against
 the downsampled time axis, as the reference does. ``gen`` is the dropout
-generator (None: deterministic).
+generator (None: deterministic). With ``remat`` each layer runs under
+``remat.checkpoint_module`` (mtl_tpu/models/encoder.py:89-90).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from ..ops.masks import attn_pad_mask_from_lengths, non_pad_mask_from_lengths
 from .layers import (FactorizedDense, FeedForward, MultiHeadAttention,
                      PositionalEncoding, _layer_norm)
+from .remat import checkpoint_module
 
 
 class EncoderLayer(nn.Module):
@@ -47,9 +49,10 @@ class Encoder(nn.Module):
                  dim_key: int, dim_value: int, dim_input: int, dim_inner: int,
                  dropout: float = 0.1, src_max_length: int = 2500,
                  is_factorized: bool = False,
-                 r: int = 100, dtype: torch.dtype = torch.bfloat16):
+                 r: int = 100, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.input_linear = FactorizedDense(
             dim_input, dim_model, r=r if is_factorized else None, dtype=dtype)
         self.layer_norm_input = _layer_norm(dim_model)
@@ -71,5 +74,9 @@ class Encoder(nn.Module):
         h = self.layer_norm_input(self.input_linear(padded_input).float())
         h = (h + self.positional_encoding(t)).to(self.dtype)
         for layer in self.layers:
-            h = layer(h, non_pad_mask, self_attn_mask, gen)
+            if self.remat:
+                h = checkpoint_module(layer, h, non_pad_mask, self_attn_mask,
+                                      gen=gen)
+            else:
+                h = layer(h, non_pad_mask, self_attn_mask, gen)
         return h

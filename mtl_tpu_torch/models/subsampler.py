@@ -8,7 +8,12 @@ fused VGG kernels of ``ops/vgg.py``, through ``vgg_stack``, whose backward
 recomputes the plain version (the ``fused_vgg_stack`` custom VJP of the JAX
 package). Input [B, T, F] f32; output
 [B, T//4, (F//4) * C] in the compute dtype, flattened (f, c) f-major like
-the JAX package.
+the JAX package. With ``plain`` (the ``--second-order`` route, which the
+configuration picks, as mtl_tpu/models/transformer.py:172-177 forces the
+XLA convs there) the blocks run ``vgg_stack_plain`` instead, the same
+function by autograd (f32 cuDNN convolutions on the card, TF32 off), which
+can be differentiated twice; the stack's Function cannot
+(``ops/vgg.py:_VGGStack``).
 
 ``emb_cnn`` (:104-117): Conv 41x11 (freq x time), stride (2, 2), padding
 (0, 10) -> BatchNorm -> clip to [0, 20] -> Conv 21x11, stride (2, 1),
@@ -32,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.vgg import vgg_stack
+from ..ops.vgg import vgg_stack, vgg_stack_plain
+from ..utils.precision import strict_f32
 
 CHANNELS = {"vgg_cnn": (64, 128), "large_cnn": (32, 64)}
 # emb_cnn: (kernel (freq, time), stride, padding) of its two convs
@@ -116,9 +122,9 @@ class FeatureExtractor(nn.Module):
     """Dispatches on feat_extractor name; returns [B, T', D'] frames."""
 
     def __init__(self, feat_extractor: str = "vgg_cnn",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, plain: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.plain = dtype, plain
         self.feat_extractor = feat_extractor
         self.convs = nn.ModuleList()
         self.bns = nn.ModuleList()
@@ -145,6 +151,10 @@ class FeatureExtractor(nn.Module):
         if self.feat_extractor == "emb_cnn":
             return self._emb_cnn(features, train, stats_out)
         weights = [t for conv in self.convs for t in (conv.kernel, conv.bias)]
+        if self.plain:
+            with strict_f32():
+                return vgg_stack_plain(features.float(), weights,
+                                       out_dtype=self.dtype)
         return vgg_stack(features.float().contiguous(), weights,
                          out_dtype=self.dtype)
 

@@ -1,16 +1,25 @@
 """Top-level ASR Transformer (port of mtl_tpu/models/transformer.py;
 reference models/asr/transformer.py:14-240).
 
-conv subsampler -> encoder -> decoder. ``forward`` is the teacher-forced
-pass of training (mtl_tpu/models/transformer.py:101-111), with the encoder
-output beside the logits for the discriminator heads
-(``forward_with_encoder``, :113); decoding runs
-``prepare_decode`` (encoder output + cross-attention K/V per decoder layer),
-``init_cache`` and ``decode_step``. ``serving_copy`` casts the linear
+conv subsampler -> encoder (the Transformer's, or with ``encoder_type=
+"conformer"`` the Conformer's of ``conformer.py``) -> decoder. ``forward``
+is the teacher-forced pass of training (mtl_tpu/models/transformer.py:
+101-111), with the encoder output beside the logits for the discriminator
+heads (``forward_with_encoder``, :113); decoding runs ``prepare_decode``
+(encoder output + cross-attention K/V per decoder layer), ``init_cache``
+and ``decode_step``. ``serving_copy`` casts the linear
 weights to the compute dtype once, for decoding. Construction from a
 Config mirrors init_transformer_model (utils/functions.py:307-351),
 including the derived ``dim_input``. Parameters are named so that
 ``interop.py`` maps them one to one onto the JAX package's param tree.
+
+``remat`` recomputes each encoder layer (block) in the backward,
+``remat_conv`` the whole conv front-end (``remat.checkpoint_module``); as
+in the JAX package (:91-96) the front-end then runs with ``train=False``,
+so emb_cnn's BatchNorm normalizes by its running averages and reports no
+statistics. ``second_order`` picks the routes that autograd
+differentiates twice: the VGG stack's plain version (``subsampler.py``)
+and the Conformer's unfolded depthwise conv (``conformer.py``).
 """
 
 from __future__ import annotations
@@ -22,8 +31,10 @@ import torch
 from torch import nn
 
 from ..config import Config
+from .conformer import ConformerEncoder, DepthwiseConv
 from .decoder import Decoder, LayerKV
 from .encoder import Encoder
+from .remat import checkpoint_module
 from .subsampler import FeatureExtractor
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -37,14 +48,27 @@ class ASRTransformer(nn.Module):
                  dim_inner: int = 512, dim_emb: int = 512,
                  dropout: float = 0.1, src_max_length: int = 2500,
                  trg_max_length: int = 1000, is_factorized: bool = False,
-                 r: int = 100, dtype: torch.dtype = torch.bfloat16):
+                 r: int = 100, dtype: torch.dtype = torch.bfloat16,
+                 encoder_type: str = "transformer", remat: bool = False,
+                 remat_conv: bool = False, second_order: bool = False):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
-        self.conv = FeatureExtractor(feat_extractor, dtype=dtype)
-        self.encoder = Encoder(num_enc_layers, num_heads, dim_model, dim_key,
-                               dim_value, dim_input, dim_inner,
-                               dropout=dropout, src_max_length=src_max_length,
-                               is_factorized=is_factorized, r=r, dtype=dtype)
+        self.remat_conv = remat_conv
+        self.conv = FeatureExtractor(feat_extractor, dtype=dtype,
+                                     plain=second_order)
+        if encoder_type == "conformer":
+            self.encoder = ConformerEncoder(
+                num_enc_layers, num_heads, dim_model, dim_input,
+                dropout=dropout, dtype=dtype, remat=remat,
+                second_order=second_order)
+        elif encoder_type == "transformer":
+            self.encoder = Encoder(
+                num_enc_layers, num_heads, dim_model, dim_key, dim_value,
+                dim_input, dim_inner, dropout=dropout,
+                src_max_length=src_max_length, is_factorized=is_factorized,
+                r=r, dtype=dtype, remat=remat)
+        else:
+            raise ValueError(f"unknown encoder_type {encoder_type!r}")
         self.decoder = Decoder(vocab_size, num_dec_layers, num_heads, dim_emb,
                                dim_model, dim_inner, dim_key, dim_value,
                                dropout=dropout, trg_max_length=trg_max_length,
@@ -58,9 +82,13 @@ class ASRTransformer(nn.Module):
         frame counts (the encoder masks use them against downsampled time,
         the reference's quirk). ``train_conv`` runs emb_cnn's BatchNorm on
         the batch's statistics and reports the new running statistics to
-        ``stats_out`` (mtl_tpu/models/transformer.py:84-99)."""
-        return self.encoder(self.conv(features, train_conv, stats_out),
-                            input_lengths, gen)
+        ``stats_out`` (mtl_tpu/models/transformer.py:84-99); under
+        ``remat_conv`` it never does."""
+        if self.remat_conv:
+            frames = checkpoint_module(self.conv, features)
+        else:
+            frames = self.conv(features, train_conv, stats_out)
+        return self.encoder(frames, input_lengths, gen)
 
     def forward(self, features: torch.Tensor, input_lengths: torch.Tensor,
                 seq_in: torch.Tensor, deterministic: bool = True,
@@ -107,8 +135,6 @@ def build_model(cfg: Config, vocab_size: int,
     Load a state_dict or call ``init_weights`` before use."""
     cfg.finalize()
     m = cfg.model
-    if m.encoder_type != "transformer":
-        raise ValueError(f"encoder_type {m.encoder_type!r} is not ported yet")
     return ASRTransformer(
         vocab_size=vocab_size, feat_extractor=m.feat_extractor,
         num_enc_layers=m.num_enc_layers, num_dec_layers=m.num_dec_layers,
@@ -116,17 +142,23 @@ def build_model(cfg: Config, vocab_size: int,
         dim_value=m.dim_value, dim_input=m.dim_input, dim_inner=m.dim_inner,
         dim_emb=m.dim_emb, dropout=m.dropout, src_max_length=m.src_max_len,
         trg_max_length=m.tgt_max_len, is_factorized=m.is_factorized, r=m.r,
-        dtype=DTYPES[m.dtype],
+        dtype=DTYPES[m.dtype], encoder_type=m.encoder_type, remat=m.remat,
+        remat_conv=m.remat_conv, second_order=cfg.train.second_order,
     ).to(device)
 
 
 def serving_copy(model: ASRTransformer) -> ASRTransformer:
     """Casts every linear's weight and bias to the compute dtype, once, in
     place: the values flax's per-call cast gives, without a cast launch per
-    call on the decode loop. For decoding only; checkpoints hold f32."""
+    call on the decode loop. A model built for ``--second-order`` serves on
+    the VGG kernels and cuDNN's depthwise conv all the same (decoding takes
+    no second derivative). For decoding only; checkpoints hold f32."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
             module.to(model.dtype)
+        elif isinstance(module, DepthwiseConv):
+            module.unfolded = False
+    model.conv.plain = False
     return model
 
 
@@ -139,15 +171,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for name, b in model.named_buffers():
         if name.endswith((".mean", ".var")):
             b.fill_(1.0 if name.endswith(".var") else 0.0)
+    ones = {f"{n}.weight" for n, m in model.named_modules()
+            if isinstance(m, nn.LayerNorm)}
     for name, p in model.named_parameters():
         if p.dim() < 2:
-            p.copy_(torch.ones_like(p) if name.endswith(
-                ("layer_norm.weight", "layer_norm_input.weight", ".scale"))
-                else torch.zeros_like(p))
+            p.copy_(torch.ones_like(p) if name in ones or name.endswith(
+                ".scale") else torch.zeros_like(p))
             continue
         if p.dim() == 4:  # HWIO conv kernel
             rf = p.shape[0] * p.shape[1]
             fan_in, fan_out = rf * p.shape[2], rf * p.shape[3]
+        elif p.dim() == 3:  # conv1d [C_out, C_in / groups, k]
+            fan_in, fan_out = p.shape[2] * p.shape[1], p.shape[2] * p.shape[0]
         else:  # torch [out, in]; flax embeddings are [vocab, dim]
             fan_out, fan_in = p.shape
         bound = math.sqrt(6.0 / (fan_in + fan_out))

@@ -28,7 +28,9 @@ its backward recomputes the chain's plain version from them and takes that
 function's VJP with autograd, as ``_stack_bwd`` (:442-446) takes the VJP of
 the XLA reference outside any Pallas kernel. The backward is no kernel of
 the port: on the card it runs cuDNN convolutions. It is counted as
-``vgg_stack_bwd`` there.
+``vgg_stack_bwd`` there. It cannot be differentiated again and raises
+under a ``create_graph`` backward; second order differentiates
+``vgg_stack_plain`` (``models/subsampler.py``).
 
 Layouts are time-major, as in the JAX package: x [B, T, F] (C_in = 1) or
 [B, T, F, C_in]; weights flax HWIO [3(f), 3(t), C_in, C] with H = freq and
@@ -243,6 +245,14 @@ class _VGGStack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            # a create_graph backward: the recompute below is detached, so
+            # its gradients would carry no graph and a second derivative
+            # through the four convs would be dropped without a word
+            raise RuntimeError(
+                "vgg_stack has no double backward (its backward recomputes "
+                "the plain version from detached inputs); differentiate "
+                "vgg_stack_plain instead, the --second-order route")
         saved = ctx.saved_tensors
         need = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[2:])
         inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]

@@ -1,6 +1,6 @@
 """Training steps of the port (mtl_tpu/train/steps.py): feature
 preparation, the teacher-forced forward + loss, the joint step, the
-first-order meta-transfer step and the evaluation step.
+meta-transfer step (first or second order) and the evaluation step.
 
 The joint step (:169-222; reference joint_trainer.py:195-271) takes the
 mean over the K task batches of their CE and one gradient of it, which is
@@ -20,8 +20,17 @@ outer Adam (:397-401). The meta-transfer query batch (the code-switched
 target, transient_trainer.py:168) is the same for every task, so its
 features are computed once per iteration; under MAML (``per_task_query``,
 meta_trainer.py:244) task k takes its own query ``query[k]``, whose
-features are computed in its turn. Second order (gradients through the
-inner step) is not ported yet.
+features are computed in its turn.
+
+With ``--second-order`` the task's term is ``task_outer_loss``
+(:273-284) and its gradient is taken through the inner step, the tasks
+one after another as in ``outer_grads_so_scan`` (:354-380): the support
+gradient g is kept in the graph (``create_graph``), the inner clip is
+differentiated through, norm included, the adapted weights p - lr * g stay
+in the graph, and the query loss at them is differentiated with respect to
+p. Each task's graph is freed before the next starts. The VGG stack then
+runs its plain version (``models/subsampler.py``), and the step runs with
+TF32 off, so its f32 convolutions are f32 on the card.
 
 With ``--loss ctc`` the loss is the CTC of the decoder's logits against
 the targets with input lengths ``min(src_percentages * L, L)``
@@ -46,6 +55,7 @@ the parameters and the optimizer state in place.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -58,6 +68,7 @@ from ..data.vocab import PAD_ID
 from ..ops.edit_distance import device_cer
 from ..ops.frontend import log_fbank, log_spectrogram
 from ..ops.targets import make_teacher_forcing, target_lengths
+from ..utils.precision import strict_f32
 from .losses import (ce_loss, ce_row_losses, ctc_loss, ctc_row_losses,
                      masked_loss_guard)
 from .optim import OptState, global_norm
@@ -179,12 +190,19 @@ def _device_cer_metrics(hyp: torch.Tensor, gold: torch.Tensor,
     return {"cer_dist": d, "cer_chars": c}
 
 
-def _clip_tree(grads: List[torch.Tensor], max_norm: float
-               ) -> List[torch.Tensor]:
+def _clip_tree(grads: List[torch.Tensor], max_norm: float,
+               differentiable: bool = False) -> List[torch.Tensor]:
     """Scale by min(1, max_norm / (global norm + 1e-6))
-    (mtl_tpu/train/steps.py:161-164)."""
-    scale = (max_norm / (global_norm(grads) + 1e-6)).clamp(max=1.0)
-    return torch._foreach_mul(grads, scale)
+    (mtl_tpu/train/steps.py:161-164). ``differentiable`` computes the same
+    values per tensor, with ops that autograd differentiates again (the
+    second-order inner clip), as optax.global_norm does: the square root
+    of the sum of every tensor's sum of squares."""
+    if not differentiable:
+        scale = (max_norm / (global_norm(grads) + 1e-6)).clamp(max=1.0)
+        return torch._foreach_mul(grads, scale)
+    norm = torch.sqrt(torch.stack([(g * g).sum() for g in grads]).sum())
+    scale = (max_norm / (norm + 1e-6)).clamp(max=1.0)
+    return [g * scale for g in grads]
 
 
 def _task_batch(batches: Dict[str, torch.Tensor], i: int):
@@ -254,7 +272,8 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
 def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
                    per_task_query: bool = False, head=None,
                    space_id: Optional[int] = None) -> Callable:
-    """One first-order meta iteration. ``step(state, support, query,
+    """One meta iteration, first order or (``cfg.train.second_order``)
+    second order. ``step(state, support, query,
     generator, beta)``: ``support`` holds tensors with a leading task axis
     K; ``query`` one batch shared by the tasks (meta-transfer), or with
     ``per_task_query`` (MAML, meta_trainer.py:244) a batch per task with a
@@ -269,16 +288,39 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
     discriminator's gradients are the mean over the tasks, not clipped.
 
     With ``cfg.train.device_cer`` and no head, the metrics also hold
-    ``cer_dist`` / ``cer_chars`` of the support hyps."""
-    if cfg.train.second_order:
-        raise ValueError("--second-order is not ported yet")
+    ``cer_dist`` / ``cer_chars`` of the support hyps. Second order takes no
+    head and no ``--copy-grad`` (both raise, as in the JAX package)."""
+    second_order = cfg.train.second_order
+    if cfg.train.copy_grad and second_order:
+        raise ValueError("--copy-grad (first-order) contradicts "
+                         "--second-order; pass one or the other")
+    if head is not None and second_order:
+        raise ValueError(
+            "--second-order is not implemented for the adversarial/multitask"
+            " meta step; drop --second-order or the discriminator flags")
     forward = make_forward_fn(model, cfg)
     inner_lr, clip, max_norm = cfg.train.lr, cfg.train.clip, cfg.train.max_norm
     with_cer = cfg.train.device_cer and head is None
 
+    def second_order_task(names, params, s_loss, q, generator, stats_out):
+        """(query loss, its aux, its gradient at p) of ``task_outer_loss``:
+        the gradient flows through the inner SGD step. The task's graph
+        goes with the return."""
+        g = torch.autograd.grad(s_loss, params, create_graph=True)
+        if clip:
+            g = _clip_tree(g, max_norm, differentiable=True)
+        adapted = [p - inner_lr * gi for p, gi in zip(params, g)]
+        q_loss, aux_q = forward(dict(zip(names, adapted)), q, generator,
+                                False, stats_out=stats_out)
+        return q_loss, aux_q, list(torch.autograd.grad(q_loss, params))
+
     def step(state: TrainState, support: Dict[str, torch.Tensor],
              query: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, beta: float = 0.5):
+        with strict_f32() if second_order else contextlib.nullcontext():
+            return run(state, support, query, generator, beta)
+
+    def run(state, support, query, generator, beta):
         names = list(state.params)
         params = [state.params[n] for n in names]
         d_params = [] if head is None else head.params(state)
@@ -295,25 +337,31 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
         for i in range(k):
             s_loss, aux = forward(None, _task_batch(support, i), generator,
                                   False)
-            g = list(torch.autograd.grad(s_loss, params))
-            if clip:
-                g = _clip_tree(g, max_norm)
-            with torch.no_grad():
-                adapted = list(torch._foreach_add(params, g, alpha=-inner_lr))
-            for a in adapted:
-                a.requires_grad_(True)
             q = _task_batch(query, i) if per_task_query else query
             stats.append([])
-            q_loss, aux_q = forward(dict(zip(names, adapted)), q, generator,
-                                    False, with_encoder=head is not None,
-                                    stats_out=stats[-1])
-            if head is not None:
-                ces.append(q_loss.detach())
-                terms.append(head.terms(aux_q.pop("enc"),
-                                        i if per_task_query else k - 1,
-                                        beta))
-                q_loss = q_loss + terms[-1][0]
-            gq = list(torch.autograd.grad(q_loss, adapted + d_params))
+            if second_order:
+                q_loss, aux_q, gq = second_order_task(
+                    names, params, s_loss, q, generator, stats[-1])
+            else:
+                g = list(torch.autograd.grad(s_loss, params))
+                if clip:
+                    g = _clip_tree(g, max_norm)
+                with torch.no_grad():
+                    adapted = list(torch._foreach_add(params, g,
+                                                      alpha=-inner_lr))
+                for a in adapted:
+                    a.requires_grad_(True)
+                q_loss, aux_q = forward(dict(zip(names, adapted)), q,
+                                        generator, False,
+                                        with_encoder=head is not None,
+                                        stats_out=stats[-1])
+                if head is not None:
+                    ces.append(q_loss.detach())
+                    terms.append(head.terms(aux_q.pop("enc"),
+                                            i if per_task_query else k - 1,
+                                            beta))
+                    q_loss = q_loss + terms[-1][0]
+                gq = list(torch.autograd.grad(q_loss, adapted + d_params))
             if gsum is None:
                 gsum = gq
             else:
@@ -322,6 +370,7 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             s_losses.append(s_loss.detach())
             s_aux.append(aux)
             q_aux.append(aux_q)
+            del s_loss, q_loss  # the task's graph, before the next task
         torch._foreach_div_(gsum, k)
         gsum, dsum = gsum[:len(params)], gsum[len(params):]
         if clip:

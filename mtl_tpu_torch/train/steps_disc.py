@@ -101,10 +101,7 @@ def make_meta_step_disc(model, discriminator: Discriminator, cfg: Config,
                         outer_optimizer, per_task_query: bool = False
                         ) -> Callable:
     """mtl_tpu/train/steps_disc.py:77: the first-order meta step with the
-    head on each task's query loss."""
-    if cfg.train.second_order:
-        raise ValueError(
-            "--second-order is not implemented for the adversarial/multitask"
-            " meta step; drop --second-order or the discriminator flags")
+    head on each task's query loss (``make_meta_step`` refuses
+    ``--second-order`` with a head, as :91-98 does)."""
     return make_meta_step(model, cfg, outer_optimizer, per_task_query,
                           head=DiscHead(discriminator, cfg))

@@ -6,8 +6,8 @@ meta_trainer.py, joint_trainer.py and trainer.py).
 Per iteration: the next batch from a double-buffer thread (or, with
 ``--prefetch-workers N > 1``, from N workers that draw future iterations
 ahead, each from its own per-iteration ``RandomState``), one step on the
-device (train/steps.py: the first-order meta step with the shared or the
-per-task query, or the joint step, each optionally with the
+device (train/steps.py: the meta step, first or second order, with the
+shared or the per-task query, or the joint step, each optionally with the
 discriminator head of train/steps_disc.py), the train CER of the (support)
 hypotheses on the host (with ``--device-cer``, two scalars the step
 computed on the device, except under a discriminator head, as in the JAX
@@ -31,7 +31,8 @@ checkpoint holds one whose state fits too), the step and those states;
 else the weights alone, as the JAX trainers fall back to params. The epoch
 trainer restores strictly, as the JAX one does. ``meta_evaluate`` is
 meta-test: one inner step on a support draw, then evaluation at the
-adapted weights. Mesh axes, second order and remat are not ported yet.
+adapted weights; it stays first order under ``--second-order``, as in the
+JAX package. Mesh axes are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from ..utils.checkpoint import load_checkpoint, load_train_state, \
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer_batch
 from ..utils.params import compute_num_params
+from ..utils.precision import strict_f32
 from .optim import (make_epoch_optimizer, make_joint_optimizer,
                     make_meta_optimizers, opt_state_fits, restore_opt_state)
 from .steps import (TrainState, _clip_tree, batch_to_device,
@@ -195,8 +197,6 @@ def check_ported(cfg: Config) -> None:
     missing = [flag for flag, on in (
         ("--mesh-task/--mesh-data/--mesh-model > 1",
          max(cfg.mesh.task, cfg.mesh.data, cfg.mesh.model) > 1),
-        ("--second-order", cfg.train.second_order),
-        ("--remat/--remat-conv", cfg.model.remat or cfg.model.remat_conv),
     ) if on]
     if missing:
         raise ValueError(f"{', '.join(missing)}: not ported yet")
@@ -510,9 +510,9 @@ class _IterationProfiler:
 
 
 class TransientTrainer(TrainerBase):
-    """Meta-transfer trainer (transient_trainer.py:79-377): the first-order
-    meta step with the shared code-switched query, outer Adam at
-    ``meta_lr``."""
+    """Meta-transfer trainer (transient_trainer.py:79-377): the meta step
+    (first or second order) with the shared code-switched query, outer Adam
+    at ``meta_lr``."""
 
     per_task_query = False
 
@@ -559,14 +559,18 @@ def make_adapt_fn(model: torch.nn.Module, cfg: Config):
     """One inner-SGD step of meta-test (meta_trainer.py:330-458;
     mtl_tpu/train/trainer.py:503): ``adapt(params, batch, generator)``
     returns the weights after one step of ``lr`` on the batch's CE, in
-    training mode (dropout on), with the optional clip."""
+    training mode (dropout on), with the optional clip. First order under
+    ``--second-order`` too; its backward runs with TF32 off, so the plain
+    VGG stack of that route differentiates in true f32 as in the meta
+    step."""
     forward = make_forward_fn(model, cfg)
 
     def adapt(params: Dict[str, torch.Tensor], batch, generator
               ) -> Dict[str, torch.Tensor]:
         names = list(params)
         loss, _ = forward(params, batch, generator, False)
-        g = list(torch.autograd.grad(loss, [params[n] for n in names]))
+        with strict_f32():
+            g = list(torch.autograd.grad(loss, [params[n] for n in names]))
         if cfg.train.clip:
             g = _clip_tree(g, cfg.train.max_norm)
         with torch.no_grad():

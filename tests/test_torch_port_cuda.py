@@ -22,7 +22,12 @@ the CPU, both VGG routes at the log-fbank width (80 bins into block 1, 40
 into block 2), the device CER on CUDA tensors (equal integers), emb_cnn's
 convs and BatchNorm in training and evaluation mode (outputs and running
 statistics within 1e-4 relative) and the CTC loss with an infeasible row
-(value 1e-5 relative, gradients 1e-4 of the largest) against the CPU.
+(value 1e-5 relative, gradients 1e-4 of the largest) against the CPU; the
+Conformer encoder at f32 against the CPU (1e-4), a second-order meta step
+at f32 against the CPU (no VGG kernel launched; gradients 1e-3 of the
+largest, as the first-order steps) and ``--remat`` on against off on the
+card (equal loss and generator state, gradients within 2^-8 of the
+largest, at dropout 0.1, bf16).
 Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
@@ -796,3 +801,121 @@ def test_ctc_loss_on_the_card_equals_the_cpu(dev):
     torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-5, atol=0)
     torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4,
                                atol=1e-4 * float(out[1][1].abs().max()))
+
+
+# -- second order, remat and the Conformer ------------------------------------
+
+def _small_cfg(encoder="transformer", dtype="float32", dropout=0.0):
+    from mtl_tpu_torch.config import Config
+
+    cfg = Config()
+    m = cfg.model
+    m.num_enc_layers, m.num_dec_layers, m.num_heads = 2, 1, 4
+    m.dim_model = m.dim_emb = m.dim_inner = 64
+    m.dim_key = m.dim_value = 16
+    m.r, m.dtype, m.dropout, m.encoder_type = 8, dtype, dropout, encoder
+    cfg.train.lr, cfg.train.clip, cfg.train.max_norm = 0.05, True, 0.5
+    return cfg.finalize()
+
+
+def _audio_batches(k, b=2, samples=6400, seed=0):
+    rng = np.random.RandomState(seed)
+    return {"audio": torch.from_numpy(
+                (rng.randn(k, b, samples + 320) * 0.1).astype(np.float32)),
+            "audio_lengths": torch.tensor([[samples, samples - 1600]] * k),
+            "targets": torch.from_numpy(rng.randint(3, 20, (k, b, 6))),
+            "src_percentages": torch.ones(k, b)}
+
+
+def test_conformer_encoder_on_the_card_matches_the_cpu(dev):
+    """A 2-block Conformer (d 64) at f32 on the card against the CPU, a
+    padded row included: rtol/atol 1e-4 (summation order only)."""
+    from mtl_tpu_torch.models.conformer import ConformerEncoder
+    from mtl_tpu_torch.models.transformer import init_weights
+
+    enc = ConformerEncoder(2, 4, 64, 96, dropout=0.0, dtype=torch.float32)
+    init_weights(enc, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(3, 50, 96).astype(np.float32))
+    lengths = torch.tensor([50, 33, 50])
+    with torch.no_grad():
+        want = enc(x, lengths)
+        got = enc.to(dev)(x.to(dev), lengths.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert bool((got[1, 33:] == 0).all())
+
+
+@pytest.mark.parametrize("encoder", ["transformer", "conformer"])
+def test_second_order_meta_step_on_the_card_matches_the_cpu(dev, encoder):
+    """One f32 second-order meta step (inner clip on) from the same weights
+    and batches on the card and the CPU: the outer gradients rtol 1e-3
+    with atol 1e-3 of the largest; the VGG stack runs its plain version
+    (no VGG kernel, no ``vgg_stack_bwd``), the FFT STFT K + 1 times."""
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.train.steps import init_train_state, make_meta_step
+
+    cfg = _small_cfg(encoder)
+    cfg.train.second_order = True
+    support = _audio_batches(2)
+    query = {k: v[0] for k, v in _audio_batches(1, seed=1).items()}
+    weights = None
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg, 20, d)
+        if weights is None:
+            init_weights(model, torch.Generator().manual_seed(0))
+            weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        rec = _GradRecorder()
+        native.reset_launch_counts()
+        make_meta_step(model, cfg, rec)(
+            init_train_state(model, rec),
+            {k: v.to(d) for k, v in support.items()},
+            {k: v.to(d) for k, v in query.items()})
+        if d == dev:
+            torch.cuda.synchronize()
+            c = dict(native.launch_counts)
+        grads.append(rec.grads)
+    assert c["stft_logmag"] == 3, c
+    assert c["vgg_block1"] == c["vgg_block2"] == c["vgg_stack_bwd"] == 0, c
+    assert c["vgg_block1_f32"] == c["vgg_block2_f32"] == 0, c
+    scale = max(float(g.abs().max()) for g in grads[1].values())
+    for k, g in grads[1].items():
+        torch.testing.assert_close(grads[0][k].cpu(), g, rtol=1e-3,
+                                   atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("encoder", ["transformer", "conformer"])
+def test_remat_on_the_card_keeps_loss_gradients_and_generator(dev, encoder):
+    """bf16, dropout 0.1, ``--remat --remat-conv`` on against off from one
+    CUDA generator seed: equal loss and generator state after the
+    backward, gradients within 2^-8 of the largest (one bf16 ulp of it:
+    cuBLAS may pick another bf16 GEMM algorithm for the recompute's
+    buffers, and a bf16 activation one ulp off carries into the
+    gradients; a mask drawn anew in the recompute would move them by far
+    more)."""
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.train.steps import make_forward_fn
+
+    batch = {k: v[0].to(dev) for k, v in _audio_batches(1).items()}
+    runs = []
+    for on in (False, True):
+        cfg = _small_cfg(encoder, "bfloat16", 0.1)
+        cfg.model.remat = cfg.model.remat_conv = on
+        model = build_model(cfg, 20, dev)
+        init_weights(model, torch.Generator().manual_seed(0))
+        gen = torch.Generator(dev).manual_seed(3)
+        native.reset_launch_counts()
+        loss, _ = make_forward_fn(model, cfg)(None, batch, gen, False)
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), g, gen.get_state(),
+                     dict(native.launch_counts)))
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = runs
+    assert torch.equal(l0, l1) and torch.equal(s0, s1)
+    scale = max(float(g.abs().max()) for g in g0)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0, atol=2.0 ** -8 * scale)
+    # --remat-conv runs the VGG kernels again in the recompute
+    assert c0["vgg_block1"] == 1 and c1["vgg_block1"] == 2, (c0, c1)
+    assert c0["vgg_stack_bwd"] == c1["vgg_stack_bwd"] == 1, (c0, c1)

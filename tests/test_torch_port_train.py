@@ -744,8 +744,7 @@ def test_early_stopper_parity():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("mesh.data", 2), ("train.second_order", True), ("model.remat", True),
-    ("model.remat_conv", True)])
+    ("mesh.data", 2), ("mesh.task", 2), ("mesh.model", 2)])
 def test_unported_training_options_raise(flag, value):
     from mtl_tpu_torch.train.trainer import check_ported
 
@@ -759,10 +758,13 @@ def test_unported_training_options_raise(flag, value):
 
 @pytest.mark.parametrize("flag,value", [
     ("train.prefetch_workers", 2), ("train.device_cer", True),
-    ("train.profile_dir", "/x")])
+    ("train.profile_dir", "/x"), ("train.second_order", True),
+    ("model.remat", True), ("model.remat_conv", True)])
 def test_ported_training_options_are_accepted(flag, value):
-    """The three options refused until the training-options slice are
-    accepted now (their behaviour: tests/test_torch_port_options.py)."""
+    """The options refused until the training-options slice and until the
+    second-order slice are accepted now (their behaviour:
+    tests/test_torch_port_options.py, test_torch_port_second_order.py and
+    test_torch_port_conformer.py)."""
     from mtl_tpu_torch.train.trainer import check_ported
 
     cfg = Config()
