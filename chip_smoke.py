@@ -155,7 +155,29 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    ``--remat --remat-conv`` on against off at that width (bf16, dropout
    0.1: equal loss and generator state, gradients within one bf16 ulp of
    the largest);
-28. prints the kernels as one JSON line and, last, the result line.
+28. trains the flagship width on a task mesh through
+   ``meta_transfer_train_main --mesh-task 3`` (3 ranks sharing the card
+   over gloo, each one task of 8 + 8 utterances; bf16, dropout 0, 3 steps)
+   beside the same argv in one process: every loss finite and within 1e-3
+   relative of the single process's; every rank launched the FFT STFT,
+   both bf16 VGG kernels and the stack's backward (its counts gathered by
+   the launcher); step ms beside the single process's, each rank's peak
+   memory;
+29. in one 2-rank group on the card: f32 sharded meta steps (first and
+   second order) and an emb_cnn epoch step with its BatchNorm synchronized
+   on (task 1, data 2) against the same steps in one process (outer
+   gradients within 1e-4 of the largest); the sequence-parallel encode of
+   a batch of 2 utterances of 40-60 s on model 2 against the unsharded
+   encode (bf16 within one bf16 ulp of the largest output, f32 within
+   1e-5 of it, a 2-block Conformer at configs[4]'s width in bf16), each
+   rank's VGG kernels launched once on its haloed slice, each rank's
+   encode peak memory beside the unsharded encode's;
+30. serves 4 utterances of 40-60 s through ``test_main --mesh-model 2``
+   (bucket 6400 frames, ``--src-max-len 4000``) and the unsharded
+   ``test_main``: PRED lines and finite totals, every rank launched the
+   FFT STFT and both bf16 VGG kernels once a batch; utterances/s and peak
+   memory by rank;
+31. prints the kernels as one JSON line and, last, the result line.
 
 Phase 3b holds both routes of both VGG blocks at the log-fbank shapes
 (80 bins into block 1, 40 into block 2) against their plain versions and
@@ -2604,6 +2626,349 @@ def lm_parity(torch, dev, tasks):
          torch.backends.cuda.matmul.allow_tf32) = flags
 
 
+# -- the mesh: task/data-parallel training, sequence-parallel serving ------
+
+MESH_STEPS, SP_UTTERANCES, SP_FRAMES = 3, 4, 6400
+SP_COUNTS = ("vgg_block1", "vgg_block2", "vgg_block1_f32", "vgg_block2_f32")
+
+
+def _mesh_train_argv(dev, corpus):
+    """Phase 28's flags: the flagship width, K 3 x (8 + 8), dropout 0 (so
+    that the mesh draws no other masks than one process), no evaluation or
+    checkpoint inside the run."""
+    manifests = [os.path.join(corpus, f"manifest_task{i}.csv")
+                 for i in range(K_TASKS)]
+    return (["--train-manifest-list", *manifests, "--valid-manifest-list",
+             manifests[-1], "--labels-path", os.path.join(corpus,
+                                                          "labels.json"),
+             "--device", dev.type, "--k-train", str(K_SHOT), "--k-valid",
+             str(K_SHOT), "--evaluate-every", "1000", "--save-every", "1000",
+             "--dropout", "0", "--save-folder", os.path.join(WORK,
+                                                             "mesh_models"),
+             "--src-buckets", "800", "--epochs", str(MESH_STEPS)]
+            + TRAIN_FLAGS)
+
+
+def _rank_lines(stats, keys):
+    return "; ".join(
+        f"rank {r}: " + ", ".join(f"{k} {s[k]}" for k in keys)
+        + f", peak {s['peak_bytes'] / 2**20:.1f} MiB"
+        for r, s in enumerate(stats))
+
+
+def mesh_train(torch, dev, corpus):
+    """Phase 28: ``meta_transfer_train_main --mesh-task 3`` on the card (3
+    ranks, each one task of 8 + 8 utterances; on one card they share it
+    over gloo, with a card each NCCL connects them), bf16,
+    dropout 0, 3 steps, beside the same argv in one process: every loss
+    finite and within 1e-3 relative of the single process's; the FFT STFT,
+    both bf16 VGG kernels and the stack's backward launched on every rank
+    (each rank's counts gathered by the launcher); step ms beside the
+    single process's and the peak memory of each rank."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+    from mtl_tpu_torch.parallel import launch
+
+    argv = _mesh_train_argv(dev, corpus)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _, single, _, _ = _run_cli(torch, meta_transfer_train_main, argv, WORK,
+                               "chip_mesh_single")
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _, sharded, wall, _ = _run_cli(
+        torch, meta_transfer_train_main, argv + ["--mesh-task",
+                                                 str(K_TASKS)],
+        WORK, "chip_mesh_task3")
+    mesh_line = [ln for ln in sharded.splitlines() if ln.startswith("MESH")]
+    check(len(mesh_line) == 1 and "task=3 data=1 model=1" in mesh_line[0],
+          f"mesh line {mesh_line}")
+    print(mesh_line[0], flush=True)
+    want = _finite_losses(single, MESH_STEPS, "single-process run", False)
+    got = _finite_losses(sharded, MESH_STEPS, "mesh run", False)
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    print(f"mesh train: TRAIN LOSS task-3 mesh {got} vs one process {want}: "
+          f"max relative difference {rel:.3e} (bound 1e-3; the printed "
+          f"4 decimals)", flush=True)
+    check(rel <= 1e-3, f"mesh losses {got} vs single {want}")
+    stats = list(launch.rank_stats)
+    check(len(stats) == K_TASKS, f"rank stats {stats}")
+    need = 2 * MESH_STEPS  # a task's support and query forwards a step
+    for r, s in enumerate(stats):
+        check(all(s[k] >= need for k in ("vgg_block1", "vgg_block2",
+                                         "vgg_stack_bwd", "stft_logmag"))
+              and s["stft_logmag_direct"] == 0
+              and s["vgg_block1_f32"] == s["vgg_block2_f32"] == 0,
+              f"rank {r} must launch the FFT STFT, both bf16 VGG kernels and "
+              f"the backward >= {need} times: {s}")
+    print("launches and peak memory by rank in the mesh train run: "
+          + _rank_lines(stats, ("stft_logmag", "vgg_block1", "vgg_block2",
+                                "vgg_stack_bwd")), flush=True)
+    print(f"mesh train: TOTAL TIME per iteration after the first (host "
+          f"clock): task-3 mesh over {K_TASKS} ranks on "
+          f"{min(K_TASKS, torch.cuda.device_count())} card(s) "
+          f"{_per_iteration(sharded):.3f} ms vs one process "
+          f"{_per_iteration(single):.3f} ms; peak memory one process "
+          f"{single_peak:.1f} MiB; mesh run {wall:.1f} s wall with the "
+          f"ranks' start", flush=True)
+
+
+def _sp_corpus(work):
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+
+    manifests, labels = make_synthetic_corpus(
+        os.path.join(work, "sp_corpus"), num_tasks=1,
+        utts_per_task=SP_UTTERANCES, min_sec=40.0, max_sec=60.0,
+        seed=SEED + 5)
+    return manifests[0], labels
+
+
+def sp_serve(torch, dev, ckpt, manifest, labels):
+    """Phase 30: ``test_main --mesh-model 2`` (2 ranks sharing the card over
+    gloo) over 4 synthetic utterances of 40-60 s in batches of 2, bucket
+    6400 frames (1600 encoder frames), ``--src-max-len 4000``; beside it
+    the unsharded ``test_main`` of the same batches. PRED lines and finite
+    totals; each rank launched the FFT STFT and both bf16 VGG kernels once
+    a batch (its haloed slice); utterances/s and each rank's peak
+    memory."""
+    from mtl_tpu_torch.cli.asr import test_main
+    from mtl_tpu_torch.parallel import launch
+
+    argv = ["--test-manifest-list", manifest, "--labels-path", labels,
+            "--continue-from", ckpt, "--device", dev.type, "--k-test", "2",
+            "--src-buckets", str(SP_FRAMES), "--src-max-len", "4000"]
+    batches = SP_UTTERANCES // 2
+    res = {}
+    for name, extra in (("chip_sp_plain", []),
+                        ("chip_sp_model2", ["--mesh-model", "2"])):
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        res[name] = _run_cli(torch, test_main, argv + extra, WORK, name)
+        result, out = res[name][:2]
+        preds = [ln for ln in out.splitlines() if ln.startswith("PRED:")]
+        check(len(preds) == SP_UTTERANCES
+              and result["utterances"] == SP_UTTERANCES
+              and all(math.isfinite(result[k]) for k in ("cer", "wer")),
+              f"{name}: {len(preds)} PRED lines, {result}")
+        res[name] += (torch.cuda.max_memory_allocated() / 2 ** 20,)
+    out = res["chip_sp_model2"][1]
+    check("sequence-parallel encode: time axis over model=2 "
+          "(src_max_len=4000)" in out, "the SP log line")
+    stats = list(launch.rank_stats)
+    for r, s in enumerate(stats):
+        check(s["stft_logmag"] == s["vgg_block1"] == s["vgg_block2"]
+              == batches and s["stft_logmag_direct"] == 0,
+              f"SP rank {r} must launch the FFT STFT and both bf16 VGG "
+              f"kernels once a batch ({batches}): {s}")
+    print("launches and peak memory by rank in the SP run: "
+          + _rank_lines(stats, ("stft_logmag", "vgg_block1", "vgg_block2")),
+          flush=True)
+    for name in ("chip_sp_plain", "chip_sp_model2"):
+        wall, peak = res[name][2], res[name][4]
+        print(f"{name}: {SP_UTTERANCES} utterances of 40-60 s in "
+              f"{wall:.3f} s: {SP_UTTERANCES / wall:.3f} utterances/s "
+              f"(ranks' start included for the mesh); rank 0 peak "
+              f"{peak:.1f} MiB", flush=True)
+
+
+def _sp_batch(torch, ckpt, manifest, dtype):
+    """One batch of 2 long utterances: (config at ``dtype``, vocab, state
+    dict, audio batch)."""
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg, vocab, state_dict, _, _ = load_checkpoint(ckpt)
+    cfg.model.src_max_len, cfg.model.dtype = 4000, dtype
+    cfg.data.src_bucket_frames = (SP_FRAMES,)
+    ds = SpectrogramDataset(vocab, cfg, [manifest], normalize=True)
+    batch, _ = next(ds.iter_batches(2, shuffle=False, with_valid_count=True))
+    return cfg, vocab, state_dict, {k: batch[k] for k in ("audio",
+                                                          "audio_lengths")}
+
+
+def _mesh_check_rank(mesh, spec):
+    """Phase 29 on every rank of a 2-rank group sharing the card: the f32
+    sharded meta steps (first and second order) and the emb_cnn epoch step
+    on (task 1, data 2), and the SP encodes on (data 1, model 2); rank 0
+    computes each unsharded counterpart on the card after the sharded run
+    and returns both."""
+    import torch
+
+    from mtl_tpu_torch.cli.common import load_asr_model
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.models.subsampler import subsampled_length
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from mtl_tpu_torch.parallel.sp import (encode_sp, gather_encoder_output,
+                                           time_slices)
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step, make_meta_step,
+                                           prepare_features)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {}
+    dp = make_mesh((1, 2, 1), dev)
+    for name, cfg_json, weights, sup, qry in spec["steps"]:
+        cfg = Config.from_dict(json.loads(cfg_json))
+        results = []
+        for on_mesh in (True, False):
+            if not (on_mesh or dp.is_root):
+                continue
+            model = build_model(cfg, len(spec["vocab"]), dev)
+            model.load_state_dict(weights)
+            rec = _Recorder()
+            state = init_train_state(model, rec)
+            m = dp if on_mesh else None
+            shard = ((lambda b, t: shard_batch(b, dp, t)) if on_mesh
+                     else (lambda b, t: b))
+            if qry is None:  # the epoch step: K 1 over data
+                _, loss, _ = make_joint_step(model, cfg, rec, mesh=m)(
+                    state, batch_to_device(shard(sup, True), dev))
+            else:
+                _, met = make_meta_step(model, cfg, rec, mesh=m)(
+                    state, batch_to_device(shard(sup, True), dev),
+                    batch_to_device(shard(qry, False), dev))
+                loss = met["outer_loss"]
+            results.append((float(loss), rec.grads, {
+                k: v.detach().float().cpu()
+                for k, v in model.named_buffers()}))
+            del model, state
+        if dp.is_root:
+            out[name] = results
+    sp = make_mesh((1, 1, 2), dev)
+    for name, ckpt_cfg, weights, batch in spec["encodes"]:
+        cfg = Config.from_dict(json.loads(ckpt_cfg))
+        model = load_asr_model(cfg, spec["vocab"], weights, dev)
+        b = batch_to_device(batch, dev)
+        torch.cuda.synchronize(dev)
+        native.reset_launch_counts()
+        feats, lengths = prepare_features(b, cfg)
+        slices = time_slices(subsampled_length(model.conv.feat_extractor,
+                                               feats.shape[1]), 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        with torch.no_grad():
+            enc = encode_sp(model, feats, lengths, sp.model, slices)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        counts = dict(native.launch_counts)
+        full = gather_encoder_output(enc, slices, sp)
+        every = comm_all(torch, [counts[k] for k in SP_COUNTS] + [peak], sp)
+        if sp.is_root:
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            with torch.no_grad():
+                want = model.encode(feats, lengths)
+            torch.cuda.synchronize(dev)
+            out[name] = (full.float().cpu(), want.float().cpu(), every,
+                         torch.cuda.max_memory_allocated(dev) - held,
+                         slices)
+        del model
+    return out if mesh.is_root else None
+
+
+def comm_all(torch, values, mesh):
+    """Every rank's ``values`` (ints), gathered over the mesh."""
+    from mtl_tpu_torch.parallel import comm
+
+    t = torch.tensor(values, dtype=torch.int64, device=mesh.device)
+    return comm.all_gather(t, mesh.world).cpu().tolist()
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def mesh_checks(torch, dev, corpus, ckpt, sp_manifest):
+    """Phase 29, one 2-rank group sharing the card over gloo: f32 sharded
+    meta steps, first and second order, and an emb_cnn epoch step with its
+    BatchNorm synchronized, on (task 1, data 2), against the same steps in
+    one process on the card (loss within 1e-5 relative, outer gradients
+    within 1e-4 of the largest, the running statistics within 1e-5); the
+    SP encode of one batch of 2 long utterances on (data 1, model 2)
+    against the unsharded encode on the card, served bf16 (within one bf16
+    ulp of the largest output), at f32 (within 1e-5 of it) and a 2-block
+    Conformer at configs[4]'s width (bf16); each rank's launches of the
+    VGG kernels on its haloed slice and its encode's peak memory beside
+    the unsharded encode's."""
+    from mtl_tpu_torch.config import Config, build_parser, config_from_args
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.parallel import launch
+
+    cfg, vocab, support, query, weights, _ = _parity_inputs(torch, corpus)
+    steps = []
+    for name, second in (("meta step first order", False),
+                         ("meta step second order", True)):
+        cfg.train.second_order = second
+        steps.append((name, cfg.to_json(), weights, support, query))
+    cfg.train.second_order = False
+    emb = Config.from_dict(json.loads(cfg.to_json()))
+    emb.model.feat_extractor = "emb_cnn"
+    emb.finalize()
+    model = build_model(emb, len(vocab))
+    init_weights(model, torch.Generator().manual_seed(SEED + 3))
+    steps.append(("emb_cnn epoch step", emb.to_json(),
+                  {k: v.clone() for k, v in model.state_dict().items()},
+                  {k: v[:1] for k, v in support.items()}, None))
+    encodes = []
+    for dtype in ("bfloat16", "float32"):
+        ecfg, _, sd, batch = _sp_batch(torch, ckpt, sp_manifest, dtype)
+        encodes.append((f"SP encode {dtype}", ecfg.to_json(), sd, batch))
+    ccfg = config_from_args(build_parser("").parse_args(
+        CONFORMER_FLAGS + ["--num-enc-layers", "2", "--src-max-len",
+                           "4000", "--dropout", "0"]))
+    model = build_model(ccfg, len(vocab))
+    init_weights(model, torch.Generator().manual_seed(SEED + 9))
+    encodes.append(("SP encode Conformer 2 blocks d 1024 bfloat16",
+                    ccfg.to_json(), model.state_dict(), batch))
+    del model
+    mcfg = Config()
+    mcfg.mesh.data = 2
+    _free(torch)
+    t0 = time.perf_counter()
+    out = launch.run(mcfg, dev, _mesh_check_rank, {
+        "steps": steps, "encodes": encodes, "vocab": vocab})
+    print(f"mesh checks: 2 ranks over {launch.backend_for(dev, 2)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, _, _, _, _ in steps:
+        (loss, grads, bufs), (want_loss, want, want_bufs) = out[name]
+        scale = max(float(g.abs().max()) for g in want.values())
+        err = max(float((grads[k] - g).abs().max())
+                  for k, g in want.items())
+        berr = max((float((bufs[k] - b).abs().max())
+                    for k, b in want_bufs.items()), default=0.0)
+        print(f"mesh parity {name} (f32, (task 1, data 2) vs one process, "
+              f"the card): loss {loss:.7f} vs {want_loss:.7f}; outer "
+              f"gradients max_abs_err {err:.3e} of max {scale:.3e}; "
+              f"buffers max_abs_err {berr:.3e}", flush=True)
+        check(math.isclose(loss, want_loss, rel_tol=1e-5)
+              and err <= 1e-4 * scale and berr <= 1e-5,
+              f"{name}: loss {loss} vs {want_loss}, grads {err}, "
+              f"buffers {berr}")
+    for name, _, _, _ in encodes:
+        got, want, every, plain_peak, slices = out[name]
+        largest = float(want.abs().max())
+        err = float((got - want).abs().max())
+        bound = (1e-5 * max(1.0, largest) if "float32" in name
+                 else _bf16_ulp(largest))
+        print(f"{name} ({want.shape[1]} encoder frames, slices {slices}): "
+              f"max_abs_err {err:.3e} (bound {bound:.3e}, largest "
+              f"{largest:.3f}); VGG launches by rank "
+              f"{[r[:4] for r in every]}; encode peak memory by rank "
+              f"{[round(r[4] / 2**20, 1) for r in every]} MiB vs unsharded "
+              f"{plain_peak / 2**20:.1f} MiB", flush=True)
+        check(err <= bound, f"{name}: {err} > {bound}")
+        f32 = "float32" in name
+        check(all(r[2 * f32] == r[2 * f32 + 1] == 1
+                  and r[2 - 2 * f32] == r[3 - 2 * f32] == 0 for r in every),
+              f"{name}: each rank must launch its route's VGG kernels once "
+              f"(on its haloed slice): {every}")
+
+
 def main():
     import torch
 
@@ -2775,6 +3140,17 @@ def main():
     print(f"Conformer, second-order and remat phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 28. the task mesh through meta_transfer_train_main; 29. f32 sharded
+    # steps and SP encodes against one process; 30. sequence-parallel
+    # serving through test_main --mesh-model 2
+    t0 = time.perf_counter()
+    mesh_train(torch, dev, train_corpus)
+    sp_manifest, sp_labels = _sp_corpus(WORK)
+    mesh_checks(torch, dev, train_corpus, ckpt, sp_manifest)
+    sp_serve(torch, dev, ckpt, sp_manifest, sp_labels)
+    print(f"mesh and sequence-parallel phases "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the STFT on the served path, the f32 VGG kernels on the
     # f32 parity path
@@ -2786,7 +3162,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 28. results
+    # 31. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -23,7 +23,16 @@
   ``--remat`` / ``--remat-conv``;
 * ``test_main`` — test.py: greedy or beam decode (``--beam-search``,
   optionally with LM shallow fusion, ``--lm-rescoring --lm-path``) of the
-  test manifests from a port checkpoint, CER/WER + EN/ZH CER report.
+  test manifests from a port checkpoint, CER/WER + EN/ZH CER report; with
+  ``--mesh-model M`` the long-form greedy path, its encode sequence-parallel
+  over M ranks (``parallel/sp.py``).
+
+The trainers take ``--mesh-task`` / ``--mesh-data``: the calling process
+becomes rank 0 of the mesh and starts the other ranks itself
+(``parallel/launch.py``); it alone prints and returns. The mesh's refusals
+(divisibility, ``--scan-tasks``, the epoch trainer's task axis, training
+``--mesh-model``) are raised before any rank starts, as is ``--device
+cuda`` without a card.
 """
 
 from __future__ import annotations
@@ -41,9 +50,13 @@ from ..lm.fusion import LMScorer
 from ..models.discriminator import Discriminator
 from ..models.subsampler import subsampled_length
 from ..models.transformer import build_model
+from ..parallel import launch
+from ..parallel.mesh import requested_size
+from ..parallel.sp import greedy_search_sp
 from ..train.steps import prepare_features
 from ..train.trainer import (EpochTrainer, JointTrainer, MetaTrainer,
-                             TransientTrainer, meta_evaluate)
+                             TransientTrainer, check_mesh, check_ported,
+                             meta_evaluate)
 from ..utils.checkpoint import load_checkpoint
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer, calculate_cer_en_zh, calculate_wer
@@ -51,11 +64,12 @@ from .common import (build_datasets, build_vocab, load_asr_model,
                      maybe_resume, resolve_device, setup)
 
 
-def _prepare(args):
+def _prepare(args, mesh=None):
     """(cfg, vocab, train set, valid sets, model on the device, device,
-    start iteration, resumed metrics) of a training entry point."""
+    start iteration, resumed metrics) of a training entry point, on this
+    rank's device of ``mesh``."""
     cfg = config_from_args(args)
-    device = resolve_device(cfg.device)
+    device = resolve_device(cfg.device) if mesh is None else mesh.device
     setup(cfg)
     cfg, vocab, start_it, metrics = maybe_resume(cfg)
     if vocab is None:
@@ -73,6 +87,24 @@ def _discriminator(cfg, device):
     return Discriminator(cfg.model.dim_model, cfg.train.num_class).to(device)
 
 
+def _train_on_mesh(args, kind: str, run, *extra):
+    """``run(mesh, args, *extra)`` on the mesh of ``--mesh-task`` /
+    ``--mesh-data`` (one process without one), after the refusals that
+    need no rank: the device, training ``--mesh-model``, and ``kind``'s
+    mesh checks on the run's (possibly resumed) config."""
+    cfg = config_from_args(args)
+    device = resolve_device(cfg.device)
+    if requested_size(cfg) > 1:
+        check_ported(cfg)
+        resumed = maybe_resume(cfg)[0]
+        if kind != "epoch" and (resumed.train.adversarial
+                                or resumed.train.multitask):
+            kind = "joint"
+        check_mesh(resumed, launch.plan(cfg, device),
+                   len(resumed.data.train_manifest_list), kind)
+    return launch.run(cfg, device, run, args, *extra)
+
+
 def meta_transfer_train_main(argv=None, trainer_cls=TransientTrainer):
     """meta_transfer_train.py parity (mtl_tpu/cli/asr.py:50-75): builds
     the vocab, datasets and model (from the checkpoint's config with
@@ -80,17 +112,21 @@ def meta_transfer_train_main(argv=None, trainer_cls=TransientTrainer):
     ``trainer_cls``) on ``--device``, then ``--num-meta-test`` trials of
     meta-test at the final weights. Returns the final ``TrainState``."""
     parser = build_parser("Transformer ASR meta training (PyTorch port)")
-    args = parser.parse_args(argv)
+    return _train_on_mesh(parser.parse_args(argv), "meta", _meta_train,
+                          trainer_cls)
+
+
+def _meta_train(mesh, args, trainer_cls):
     cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics = \
-        _prepare(args)
+        _prepare(args, mesh)
     trainer = trainer_cls(model, cfg, vocab, device,
-                          _discriminator(cfg, device))
+                          _discriminator(cfg, device), mesh=mesh)
     log_print("Transient Trainer is initialized"
               if trainer_cls is TransientTrainer
               else "Meta Trainer is initialized")
     state = trainer.train(train_ds, valid_sets, start_it=start_it,
                           num_it=cfg.train.epochs, last_metrics=metrics)
-    if args.num_meta_test and valid_sets:
+    if args.num_meta_test and valid_sets and trainer.is_root:
         meta_evaluate(trainer, state.params, train_ds, valid_sets,
                       num_meta_test=args.num_meta_test)
     return state
@@ -107,10 +143,14 @@ def joint_train_main(argv=None):
     on ``--device``, with the discriminator head when asked. Returns the
     final ``TrainState``."""
     parser = build_parser("Transformer ASR joint training (PyTorch port)")
+    return _train_on_mesh(parser.parse_args(argv), "joint", _joint_train)
+
+
+def _joint_train(mesh, args):
     cfg, vocab, train_ds, valid_sets, model, device, start_it, metrics = \
-        _prepare(parser.parse_args(argv))
+        _prepare(args, mesh)
     trainer = JointTrainer(model, cfg, vocab, device,
-                           _discriminator(cfg, device))
+                           _discriminator(cfg, device), mesh=mesh)
     return trainer.train(train_ds, valid_sets, start_it=start_it,
                          num_it=cfg.train.epochs, last_metrics=metrics)
 
@@ -120,9 +160,13 @@ def train_main(argv=None):
     ``--device``; ``--continue-from`` a ``step_N`` checkpoint runs epochs
     N, N + 1, .... Returns the final ``TrainState``."""
     parser = build_parser("Transformer ASR epoch training (PyTorch port)")
+    return _train_on_mesh(parser.parse_args(argv), "epoch", _epoch_train)
+
+
+def _epoch_train(mesh, args):
     cfg, vocab, train_ds, valid_sets, model, device, start_epoch, _ = \
-        _prepare(parser.parse_args(argv))
-    trainer = EpochTrainer(model, cfg, vocab, device)
+        _prepare(args, mesh)
+    trainer = EpochTrainer(model, cfg, vocab, device, mesh=mesh)
     return trainer.train(train_ds, valid_sets, start_epoch=start_epoch,
                          num_epochs=cfg.train.epochs)
 
@@ -140,13 +184,26 @@ def test_main(argv=None):
     """test.py parity: load the checkpoint, decode the test manifests
     greedily or by beam search (+ LM fusion), report CER/WER + EN/ZH CER.
     Returns the four totals, the number of scored utterances and the
-    number of beam batches that switched to greedy."""
+    number of beam batches that switched to greedy. With ``--mesh-model
+    M`` (greedy only) the encode runs sequence-parallel on a mesh of
+    ``--mesh-data`` x M ranks (mtl_tpu/cli/asr.py:143-227)."""
     parser = build_parser("Transformer ASR evaluation (PyTorch port)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device = resolve_device(cfg.device)
-    if cfg.mesh.model > 1:
-        raise ValueError("--mesh-model is not ported yet")
+    if cfg.mesh.model <= 1:
+        return _test(None, args)
+    if cfg.decode.beam_search:
+        raise ValueError(
+            "--mesh-model (sequence-parallel encode) currently supports "
+            "greedy decode only; drop --beam-search or --mesh-model")
+    cfg.mesh.task = 1  # the sequence-parallel mesh: data x model
+    return launch.run(cfg, device, _test, args)
+
+
+def _test(mesh, args):
+    cfg = config_from_args(args)
+    device = resolve_device(cfg.device) if mesh is None else mesh.device
     setup(cfg)
     if not cfg.continue_from:
         raise ValueError("--continue-from is required for test")
@@ -155,6 +212,15 @@ def test_main(argv=None):
     # decode/audio settings come from the CLI, model arch from the checkpoint
     saved_cfg.decode = cfg.decode
     saved_cfg.data = cfg.data
+    if mesh is not None:
+        # long-form utterances run past the trained cap: the CLI's
+        # --src-max-len wins when larger (the PE table extends; no
+        # parameter depends on it)
+        saved_cfg.model.src_max_len = max(saved_cfg.model.src_max_len,
+                                          cfg.model.src_max_len)
+        log_print(f"sequence-parallel encode: time axis over "
+                  f"model={mesh.shape['model']} "
+                  f"(src_max_len={saved_cfg.model.src_max_len})")
     model = load_asr_model(saved_cfg, vocab, state_dict, device)
     lm = (LMScorer.load(cfg.decode.lm_path, device)
           if cfg.decode.lm_rescoring else None)
@@ -201,7 +267,13 @@ def test_main(argv=None):
                         log_print(">>>>>>> switch to greedy")
                         switched += 1
                         nbest_lists = None
-                if nbest_lists is None:
+                if mesh is not None:
+                    hyps = greedy_search_sp(model, feats, lengths, vocab,
+                                            cfg.decode.max_steps,
+                                            vocab.SOS_ID, mesh)
+                    if hyps is None:  # a rank other than 0: no scoring
+                        continue
+                elif nbest_lists is None:
                     hyps = greedy_search(model, feats, lengths, vocab,
                                          cfg.decode.max_steps, vocab.SOS_ID)
                 golds = [

@@ -107,17 +107,26 @@ class ConformerAttention(nn.Module):
         self.v = nn.Linear(dim_model, dim_model)
         self.out = nn.Linear(dim_model, dim_model)
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    def project(self, x: torch.Tensor):
+        """(q, k, v) heads [B, T, H, D] in the compute dtype, before RoPE."""
         b, t, _ = x.shape
         h, dh = self.num_heads, self.dim_model // self.num_heads
         y = self.LayerNorm_0(x.float()).to(self.dtype)
-        q, k, v = (linear(y, lin, self.dtype).view(b, t, h, dh)
-                   for lin in (self.q, self.k, self.v))
-        angles = torch.from_numpy(rope_angles(t, dh)).to(x.device)
-        q, k = apply_rope(q, angles), apply_rope(k, angles)
+        return tuple(linear(y, lin, self.dtype).view(b, t, h, dh)
+                     for lin in (self.q, self.k, self.v))
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               q_angles: torch.Tensor, k_angles: torch.Tensor,
+               attn_mask: Optional[torch.Tensor] = None,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The attention of ``project``'s heads, the queries' and keys'
+        positions given by their RoPE angles (the sequence-parallel encode
+        passes a time slice's queries against every key,
+        parallel/sp.py)."""
+        b, t = q.shape[:2]
+        q, k = apply_rope(q, q_angles), apply_rope(k, k_angles)
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        scores = scores / math.sqrt(dh)
+        scores = scores / math.sqrt(q.shape[-1])
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask[:, None], float("-inf"))
         attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen)
@@ -125,6 +134,13 @@ class ConformerAttention(nn.Module):
                            v.float())
         ctx = ctx.to(self.dtype).reshape(b, t, self.dim_model)
         return dropout(linear(ctx, self.out, self.dtype), self.dropout, gen)
+
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        q, k, v = self.project(x)
+        angles = torch.from_numpy(
+            rope_angles(x.shape[1], q.shape[-1])).to(x.device)
+        return self.attend(q, k, v, angles, angles, attn_mask, gen)
 
 
 class DepthwiseConv(nn.Module):
@@ -142,9 +158,17 @@ class DepthwiseConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        k = self.weight.shape[-1]  # odd: SAME pads (k - 1) / 2 each side
-        pad = (k - 1) // 2
+    @property
+    def pad(self) -> int:
+        return (self.weight.shape[-1] - 1) // 2  # k odd: SAME, each side
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                padded: bool = False) -> torch.Tensor:
+        """``padded``: ``x`` holds ``pad`` frames of context on each side
+        already (a time slice with its neighbours' frames, parallel/sp.py),
+        and the conv runs VALID over it."""
+        k = self.weight.shape[-1]
+        pad = 0 if padded else self.pad
         if self.unfolded:
             xp = F.pad(x.to(dtype).float(), (0, 0, pad, pad))
             windows = xp.unfold(1, k, 1)  # [B, T, C, k], a view
@@ -170,12 +194,19 @@ class ConformerConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None,
+                context=None) -> torch.Tensor:
+        """``context`` (the sequence-parallel encode's) maps the depthwise
+        conv's input [B, T, C] to the same with ``dw.pad`` frames of the
+        neighbouring time slices on each side."""
         h = self.LayerNorm_0(x.float()).to(self.dtype)
         h = F.glu(linear(h, self.pw1, self.dtype), dim=-1)
         if pad_mask is not None:  # padding stays zero into the conv
             h = h * pad_mask.to(h.dtype)
-        h = self.dw(h, self.dtype)
+        if context is not None:
+            h = self.dw(context(h), self.dtype, padded=True)
+        else:
+            h = self.dw(h, self.dtype)
         h = F.silu(self.norm(h.float()).to(self.dtype))
         return dropout(linear(h, self.pw2, self.dtype), self.dropout, gen)
 

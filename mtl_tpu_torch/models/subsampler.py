@@ -26,7 +26,11 @@ that flax's update rule gives (momentum 0.99, the biased variance) to the
 caller's ``stats_out`` list instead of writing them into its buffers; in
 evaluation mode it normalizes by the buffers ``mean`` and ``var``. The
 training steps merge the reported statistics into the buffers
-(``train/steps.py``), so no forward mutates them.
+(``train/steps.py``), so no forward mutates them. On a data mesh the
+training steps set ``sync_axis`` to the ``data`` axis, and the statistics
+are then the global batch's: the shards' sums of x and x^2, summed over the
+axis by the autograd-aware all-reduce (a synchronized BatchNorm, what the
+JAX package's BatchNorm computes over the global array under SPMD).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.vgg import vgg_stack, vgg_stack_plain
+from ..parallel import comm
 from ..utils.precision import strict_f32
 
 CHANNELS = {"vgg_cnn": (64, 128), "large_cnn": (32, 64)}
@@ -96,23 +101,32 @@ class BatchNormParams(nn.Module):
 
 
 def batch_norm(x: torch.Tensor, bn: BatchNormParams, train: bool,
-               stats_out: Optional[list] = None) -> torch.Tensor:
+               stats_out: Optional[list] = None,
+               sync_axis=None) -> torch.Tensor:
     """flax ``nn.BatchNorm(use_running_average=not train,
     dtype=float32)`` over channel axis 1 of ``x`` [B, C, H, W]: f32
     statistics over (B, H, W), flax's fast variance E[x^2] - E[x]^2
-    floored at 0. In training mode the new running (mean, var) are
-    appended, detached, to ``stats_out`` when it is given."""
+    floored at 0, over the global batch of the mesh axis ``sync_axis``
+    (equal shards) when given. In training mode the new running (mean,
+    var) are appended, detached, to ``stats_out`` when it is given."""
     x = x.float()
-    if train:
+    if not train:
+        mean, var = bn.mean, bn.var
+    elif sync_axis is not None and sync_axis.size > 1:
+        n = x.numel() // x.shape[1] * sync_axis.size
+        sums = comm.all_reduce_grad(
+            torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+            sync_axis)
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+    else:
         mean = x.mean(dim=(0, 2, 3))
         var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        if stats_out is not None:
-            with torch.no_grad():
-                stats_out.append(
-                    (BN_MOMENTUM * bn.mean + (1.0 - BN_MOMENTUM) * mean,
-                     BN_MOMENTUM * bn.var + (1.0 - BN_MOMENTUM) * var))
-    else:
-        mean, var = bn.mean, bn.var
+    if train and stats_out is not None:
+        with torch.no_grad():
+            stats_out.append(
+                (BN_MOMENTUM * bn.mean + (1.0 - BN_MOMENTUM) * mean,
+                 BN_MOMENTUM * bn.var + (1.0 - BN_MOMENTUM) * var))
     mul = torch.rsqrt(var + BN_EPSILON) * bn.scale
     return ((x - mean[:, None, None]) * mul[:, None, None]
             + bn.bias[:, None, None])
@@ -126,6 +140,7 @@ class FeatureExtractor(nn.Module):
         super().__init__()
         self.dtype, self.plain = dtype, plain
         self.feat_extractor = feat_extractor
+        self.sync_axis = None  # emb_cnn's BatchNorm: see batch_norm
         self.convs = nn.ModuleList()
         self.bns = nn.ModuleList()
         if feat_extractor in CHANNELS:
@@ -167,7 +182,7 @@ class FeatureExtractor(nn.Module):
             w = conv.kernel.permute(3, 2, 0, 1).to(self.dtype)
             x = F.conv2d(x, w, conv.bias.to(self.dtype), stride=stride,
                          padding=padding)
-            x = batch_norm(x, bn, train, stats_out)
+            x = batch_norm(x, bn, train, stats_out, self.sync_axis)
             x = torch.clamp(x, 0.0, 20.0).to(self.dtype)
         b, c, f, t = x.shape  # -> [B, T', F' * C], (f, c) f-major
         return x.permute(0, 3, 2, 1).reshape(b, t, f * c)

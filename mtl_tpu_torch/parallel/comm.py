@@ -1,0 +1,148 @@
+"""Every collective of the port (the counterparts of the collectives XLA's
+SPMD partitioner inserts for mtl_tpu/parallel/mesh.py and sp.py).
+
+All of them are built on ``torch.distributed.all_reduce`` (sum) and
+``broadcast`` alone: the two collectives gloo takes on CUDA tensors as well
+as on CPU tensors, so one code path serves CPU gloo ranks, ranks that share
+one card over gloo, and NCCL ranks with a card each. An all-gather is the
+sum over the axis of a zeroed ``[size, ...]`` buffer into which each rank
+wrote its own slab.
+
+Each function takes an ``Axis`` (``parallel/mesh.py``): a process group,
+the rank's index in it and its size. On an axis of size 1 every function is
+the identity and launches nothing.
+
+``all_reduce_grad`` is the autograd-aware form: its backward is again a
+call of this module (the backward of a sum all-reduce is the sum
+all-reduce of the incoming gradients), written with differentiable ops, so
+a ``create_graph`` backward (the second-order meta step) differentiates
+through it once more. Every rank of an axis must call the same
+collectives in the same order, forward and backward; the steps run one
+program on every rank, so they do.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def _sum_(t: torch.Tensor, axis) -> torch.Tensor:
+    """In-place sum of ``t`` over the axis (``t`` must be contiguous)."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
+    return t
+
+
+def all_reduce(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``x`` over the axis, as a new tensor (no autograd)."""
+    if axis.size == 1:
+        return x
+    return _sum_(x.detach().clone(memory_format=torch.contiguous_format),
+                 axis)
+
+
+def all_reduce_list(tensors: Sequence[torch.Tensor], axis
+                    ) -> List[torch.Tensor]:
+    """The sums over the axis of a list of tensors of one dtype, in one
+    collective over their concatenation (no autograd)."""
+    tensors = list(tensors)
+    if axis.size == 1 or not tensors:
+        return tensors
+    flat = _sum_(torch.cat([t.detach().reshape(-1) for t in tensors]), axis)
+    return [p.view_as(t) for p, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def all_gather(x: torch.Tensor, axis) -> torch.Tensor:
+    """[size, *x.shape]: every rank's ``x`` (equal shapes), in axis
+    order (no autograd)."""
+    if axis.size == 1:
+        return x[None]
+    buf = x.new_zeros((axis.size,) + tuple(x.shape))
+    buf[axis.index] = x.detach()
+    return _sum_(buf, axis)
+
+
+def all_gather_varlen(x: torch.Tensor, lengths: Sequence[int], axis,
+                      dim: int = 1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, where rank i's extent
+    along ``dim`` is ``lengths[i]`` (known to every rank): the slabs go
+    through one ``[size, ..., max(lengths), ...]`` buffer and are cropped to
+    their lengths (no autograd)."""
+    if axis.size == 1:
+        return x
+    longest = max(lengths)
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, longest - x.shape[dim]]
+    full = all_gather(torch.nn.functional.pad(x.detach(), pad), axis)
+    return torch.cat([full[i].narrow(dim, 0, n)
+                      for i, n in enumerate(lengths)], dim=dim)
+
+
+def broadcast_(tensors: Sequence[torch.Tensor], axis, src: int = 0
+               ) -> None:
+    """Overwrites each tensor with the axis rank ``src``'s, in place; one
+    collective per dtype over their concatenation."""
+    if axis.size == 1:
+        return
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    root = axis.ranks[src]
+    for group in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        dist.broadcast(flat, src=root, group=axis.group)
+        with torch.no_grad():
+            for t, p in zip(group, flat.split([t.numel() for t in group])):
+                t.copy_(p.view_as(t))
+
+
+def broadcast_flag(flag: bool, axis, device: torch.device,
+                   src: int = 0) -> bool:
+    """The axis rank ``src``'s decision, on every rank of the axis."""
+    if axis.size == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int64, device=device)
+    dist.broadcast(t, src=axis.ranks[src], group=axis.group)
+    return bool(t.item())
+
+
+def any_flag(flag: bool, axis, device: torch.device) -> bool:
+    """True on every rank of the axis when it is true on any."""
+    if axis.size == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int64, device=device)
+    return bool(_sum_(t, axis).item() > 0)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _sum_(x.clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad.contiguous(), ctx.axis), None
+
+
+def all_reduce_grad(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``x`` over the axis; its gradient is the sum over the
+    axis of the incoming gradients, differentiable again."""
+    if axis.size == 1:
+        return x
+    return _AllReduceSum.apply(x, axis)
+
+
+def all_reduce_grad_list(tensors: Sequence[torch.Tensor], axis
+                         ) -> List[torch.Tensor]:
+    """``all_reduce_grad`` of a list of tensors of one dtype, in one
+    collective over their concatenation."""
+    tensors = list(tensors)
+    if axis.size == 1 or not tensors:
+        return tensors
+    flat = all_reduce_grad(torch.cat([t.reshape(-1) for t in tensors]), axis)
+    return [p.view_as(t) for p, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+

@@ -51,6 +51,29 @@ updates the discriminator from the same backward.
 Parameters are the model's own f32 ``nn.Parameter``s; the adapted weights
 enter the forward through ``torch.func.functional_call``. A step updates
 the parameters and the optimizer state in place.
+
+Each step takes an optional ``mesh`` (``parallel/mesh.py``); with none it
+is the single-process step. On a mesh every rank holds the same parameters
+and its own ``[K / task, B / data]`` slice of the batch, and the step
+writes out the collectives that XLA inserts for the JAX package's sharded
+step (``parallel/comm.py``):
+
+* a forward's loss is this rank's share of the global batch's: the CE's
+  row-loss sum over the *global* token count (all-reduced over ``data``),
+  the CTC's local mean over ``data`` (equal shards, so the mean of the
+  shard means), and ``masked_loss_guard`` decides on the global loss;
+  emb_cnn's BatchNorm normalizes by the global batch's statistics
+  (``models/subsampler.py:batch_norm``, a synchronized BatchNorm);
+* the meta step all-reduces each task's support gradient over ``data``
+  before the inner clip and SGD step (the autograd-aware all-reduce under
+  ``--second-order``, so the outer gradient flows through it), and the
+  query gradients over ``(task, data)`` before the division by K; the
+  joint step reduces its gradient over ``(task, data)``; the outer clip and
+  the update then run alike on every rank;
+* the running BatchNorm statistics are averaged over the tasks of every
+  ``task`` rank, ``--device-cer``'s counts are summed over the ranks, and
+  the hyps and golds and the reported losses are the global batch's on
+  every rank, so that rank 0 logs the single-process run's lines.
 """
 
 from __future__ import annotations
@@ -68,6 +91,7 @@ from ..data.vocab import PAD_ID
 from ..ops.edit_distance import device_cer
 from ..ops.frontend import log_fbank, log_spectrogram
 from ..ops.targets import make_teacher_forcing, target_lengths
+from ..parallel import comm
 from ..utils.precision import strict_f32
 from .losses import (ce_loss, ce_row_losses, ctc_loss, ctc_row_losses,
                      masked_loss_guard)
@@ -127,7 +151,17 @@ def _ctc_input_lengths(batch, t: int) -> torch.Tensor:
     return torch.clamp((pct * t).int(), max=t)
 
 
-def make_forward_fn(model: torch.nn.Module, cfg: Config) -> Callable:
+def _guard(loss: torch.Tensor, data) -> torch.Tensor:
+    """``masked_loss_guard`` on the global loss: this rank's share is
+    zeroed when the sum of the shares over ``data`` is not finite."""
+    if data is None or data.size == 1:
+        return masked_loss_guard(loss)
+    total = comm.all_reduce(loss.detach(), data)
+    return torch.where(torch.isfinite(total), loss, 0.0)
+
+
+def make_forward_fn(model: torch.nn.Module, cfg: Config,
+                    mesh=None) -> Callable:
     """Teacher-forced forward + loss, CE or CTC
     (mtl_tpu/train/steps.py:90-143). ``forward(params, batch, generator,
     deterministic, with_encoder, stats_out)`` returns (loss, aux with argmax
@@ -135,10 +169,14 @@ def make_forward_fn(model: torch.nn.Module, cfg: Config) -> Callable:
     the encoder output ``enc`` of ``forward_with_encoder``); ``params``
     None runs the model's own parameters, a dict runs those instead. A
     training forward of emb_cnn appends its BatchNorms' new running
-    statistics to ``stats_out`` when given."""
+    statistics to ``stats_out`` when given. On a ``mesh`` the loss is this
+    rank's share of the global batch's over ``data`` (the module
+    docstring), and emb_cnn's BatchNorm is synchronized over ``data``."""
     if cfg.train.loss not in ("ce", "ctc"):
         raise ValueError(f"unknown --loss {cfg.train.loss!r}")
     smoothing = cfg.train.label_smoothing
+    data = None if mesh is None else mesh.data
+    model.conv.sync_axis = data
 
     def forward(params: Optional[Dict[str, torch.Tensor]], batch,
                 generator: Optional[torch.Generator] = None,
@@ -157,37 +195,92 @@ def make_forward_fn(model: torch.nn.Module, cfg: Config) -> Callable:
             loss = ctc_loss(torch.log_softmax(logits, dim=-1),
                             _ctc_input_lengths(batch, logits.shape[1]),
                             targets, target_lengths(targets))
+            if data is not None:
+                # a mean over sequences: the shards are equal, so the
+                # global mean is the sum over data of the shard means / D
+                loss = loss / data.size
             num_correct = torch.zeros((), dtype=torch.long,
                                       device=logits.device)
-        else:
+        elif data is None:
             loss, num_correct = ce_loss(logits, seq_out, PAD_ID, smoothing)
+        else:
+            # a token mean over the global batch: the shards hold other
+            # token counts, so each divides by the global count
+            row_loss, row_tokens = ce_row_losses(logits, seq_out, PAD_ID,
+                                                 smoothing)
+            tokens = comm.all_reduce(row_tokens.sum(), data)
+            loss = row_loss.sum() / tokens.clamp_min(1)
+            num_correct = ((logits.argmax(dim=-1) == seq_out)
+                           & (seq_out != PAD_ID)).sum()
         aux = {"hyp": logits.argmax(dim=-1), "gold": seq_out,
                "num_correct": num_correct}
         if with_encoder:
             aux["enc"] = enc
-        return masked_loss_guard(loss), aux
+        return _guard(loss, data), aux
 
     return forward
 
 
 @torch.no_grad()
-def _merge_batch_stats(model: torch.nn.Module, per_task: List[list]) -> None:
+def _merge_batch_stats(model: torch.nn.Module, per_task: List[list],
+                       mesh=None) -> None:
     """Writes the mean over the tasks of the running statistics each
     task's forward reported (from the same starting buffers) into emb_cnn's
-    buffers (mtl_tpu/train/steps.py:146-158); nothing without them."""
+    buffers (mtl_tpu/train/steps.py:146-158); nothing without them. On a
+    mesh the mean runs over the tasks of every ``task`` rank (the
+    statistics are the global batch's already, alike over ``data``)."""
     per_task = [stats for stats in per_task if stats]
     if not per_task:
         return
+    k = len(per_task) * (1 if mesh is None else mesh.task.size)
     for j, (mean, var) in enumerate(model.conv.batch_stats()):
-        mean.copy_(torch.stack([stats[j][0] for stats in per_task]).mean(0))
-        var.copy_(torch.stack([stats[j][1] for stats in per_task]).mean(0))
+        if mesh is None:
+            mean.copy_(torch.stack([s[j][0] for s in per_task]).mean(0))
+            var.copy_(torch.stack([s[j][1] for s in per_task]).mean(0))
+            continue
+        sums = comm.all_reduce_list(
+            [torch.stack([s[j][i] for s in per_task]).sum(0)
+             for i in (0, 1)], mesh.task)
+        mean.copy_(sums[0] / k)
+        var.copy_(sums[1] / k)
 
 
 def _device_cer_metrics(hyp: torch.Tensor, gold: torch.Tensor,
-                        space_id: Optional[int]) -> Dict[str, torch.Tensor]:
-    """``cer_dist`` / ``cer_chars`` of [K, B, L] hyps against their gold."""
+                        space_id: Optional[int], mesh=None
+                        ) -> Dict[str, torch.Tensor]:
+    """``cer_dist`` / ``cer_chars`` of [K, B, L] hyps against their gold;
+    on a mesh of this rank's slice, summed over the ranks."""
     d, c = device_cer(hyp.flatten(0, 1), gold.flatten(0, 1), space_id)
+    if mesh is not None:
+        d, c = comm.all_reduce_list([d, c], mesh.world)
     return {"cer_dist": d, "cer_chars": c}
+
+
+def _gather_tasks(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global [K, B, ...] of every rank's [K / task, B / data, ...]
+    slice (the identity without a mesh)."""
+    if mesh is None:
+        return x
+    kl, bl = x.shape[:2]
+    t, d = mesh.coords["task"], mesh.coords["data"]
+    full = x.new_zeros((kl * mesh.task.size, bl * mesh.data.size)
+                       + tuple(x.shape[2:]))
+    full[t * kl:(t + 1) * kl, d * bl:(d + 1) * bl] = x
+    return comm.all_reduce(full, mesh.world)
+
+
+def _task_mean(values: List[torch.Tensor], mesh, k: int) -> torch.Tensor:
+    """The mean over the K tasks of per-task values: on a mesh this
+    rank's part of it (its tasks' sum over K), whose sum over the ranks
+    is the mean."""
+    if mesh is None:
+        return torch.stack(values).mean()
+    return torch.stack(values).sum() / k
+
+
+def _global(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the ranks of this rank's part of a reported value."""
+    return x if mesh is None else comm.all_reduce(x, mesh.world)
 
 
 def _clip_tree(grads: List[torch.Tensor], max_norm: float,
@@ -210,7 +303,8 @@ def _task_batch(batches: Dict[str, torch.Tensor], i: int):
 
 
 def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
-                    head=None, space_id: Optional[int] = None) -> Callable:
+                    head=None, space_id: Optional[int] = None,
+                    mesh=None) -> Callable:
     """One joint iteration. ``step(state, batches, generator, beta)``:
     ``batches`` holds tensors with a leading task axis K. Returns (state,
     mean CE, aux with the argmax ``hyp`` and ``gold`` [K, B, L]).
@@ -223,55 +317,66 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
     side takes its own update. The returned loss stays the mean CE.
 
     With ``cfg.train.device_cer`` and no head, aux also holds
-    ``cer_dist`` / ``cer_chars`` (``space_id``: the vocabulary's space)."""
-    forward = make_forward_fn(model, cfg)
+    ``cer_dist`` / ``cer_chars`` (``space_id``: the vocabulary's space).
+    On a ``mesh``, ``batches`` is this rank's ``[K / task, B / data]``
+    slice, and the gradient is reduced over ``(task, data)``."""
+    forward = make_forward_fn(model, cfg, mesh)
     clip, max_norm = cfg.train.clip, cfg.train.max_norm
     with_cer = cfg.train.device_cer and head is None
+    if head is not None:
+        head.on_mesh(mesh)
 
     def step(state: TrainState, batches: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, beta: float = 0.5):
         names = list(state.params)
         params = [state.params[n] for n in names]
         ces, terms, auxes, stats = [], [], [], []
-        for i in range(batches["targets"].shape[0]):
+        k_local = batches["targets"].shape[0]
+        k = k_local * (1 if mesh is None else mesh.task.size)
+        first = 0 if mesh is None else mesh.coords["task"] * k_local
+        for i in range(k_local):
             stats.append([])
             ce, aux = forward(None, _task_batch(batches, i), generator, False,
                               with_encoder=head is not None,
                               stats_out=stats[-1])
             if head is not None:
-                terms.append(head.terms(aux.pop("enc"), i, beta))
+                terms.append(head.terms(aux.pop("enc"), first + i, beta))
             ces.append(ce)
             auxes.append(aux)
-        ce = torch.stack(ces).mean()
+        ce = _task_mean(ces, mesh, k)
         loss = ce
         if head is not None:
-            loss = ce + torch.stack([t[0] for t in terms]).mean()
+            loss = ce + _task_mean([t[0] for t in terms], mesh, k)
         d_params = [] if head is None else head.params(state)
         grads = list(torch.autograd.grad(loss, params + d_params))
+        if mesh is not None:
+            grads = comm.all_reduce_list(grads, mesh.world)
         grads, d_grads = grads[:len(params)], grads[len(params):]
         if clip:
             grads = _clip_tree(grads, max_norm)
         optimizer.update(dict(zip(names, grads)), state.opt_state,
                          state.params)
-        _merge_batch_stats(model, stats)
-        out = {"hyp": torch.stack([a["hyp"] for a in auxes]),
-               "gold": torch.stack([a["gold"] for a in auxes])}
+        _merge_batch_stats(model, stats, mesh)
+        hyp = torch.stack([a["hyp"] for a in auxes])
+        gold = torch.stack([a["gold"] for a in auxes])
+        out = {"hyp": _gather_tasks(hyp, mesh),
+               "gold": _gather_tasks(gold, mesh)}
         if with_cer:
-            out.update(_device_cer_metrics(out["hyp"], out["gold"],
-                                           space_id))
+            out.update(_device_cer_metrics(hyp, gold, space_id, mesh))
+        ce = _global(ce.detach(), mesh)
         if head is not None:
             head.update(state, d_grads)
-            out["ce"] = ce.detach()
-            out.update(head.metrics(terms))
+            out["ce"] = ce
+            out.update(head.metrics(terms, k))
         state.step += 1
-        return state, ce.detach(), out
+        return state, ce, out
 
     return step
 
 
 def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
                    per_task_query: bool = False, head=None,
-                   space_id: Optional[int] = None) -> Callable:
+                   space_id: Optional[int] = None, mesh=None) -> Callable:
     """One meta iteration, first order or (``cfg.train.second_order``)
     second order. ``step(state, support, query,
     generator, beta)``: ``support`` holds tensors with a leading task axis
@@ -289,7 +394,11 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
 
     With ``cfg.train.device_cer`` and no head, the metrics also hold
     ``cer_dist`` / ``cer_chars`` of the support hyps. Second order takes no
-    head and no ``--copy-grad`` (both raise, as in the JAX package)."""
+    head and no ``--copy-grad`` (both raise, as in the JAX package).
+
+    On a ``mesh``, ``support`` is this rank's ``[K / task, B / data]``
+    slice and ``query`` its ``[B / data]`` slice (MAML: ``[K / task, B /
+    data]``); the metrics are the global batch's on every rank."""
     second_order = cfg.train.second_order
     if cfg.train.copy_grad and second_order:
         raise ValueError("--copy-grad (first-order) contradicts "
@@ -298,15 +407,20 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
         raise ValueError(
             "--second-order is not implemented for the adversarial/multitask"
             " meta step; drop --second-order or the discriminator flags")
-    forward = make_forward_fn(model, cfg)
+    forward = make_forward_fn(model, cfg, mesh)
     inner_lr, clip, max_norm = cfg.train.lr, cfg.train.clip, cfg.train.max_norm
     with_cer = cfg.train.device_cer and head is None
+    if head is not None:
+        head.on_mesh(mesh)
 
     def second_order_task(names, params, s_loss, q, generator, stats_out):
         """(query loss, its aux, its gradient at p) of ``task_outer_loss``:
-        the gradient flows through the inner SGD step. The task's graph
-        goes with the return."""
+        the gradient flows through the inner SGD step (and, on a mesh,
+        through the all-reduce of the support gradient over ``data``). The
+        task's graph goes with the return."""
         g = torch.autograd.grad(s_loss, params, create_graph=True)
+        if mesh is not None:
+            g = comm.all_reduce_grad_list(g, mesh.data)
         if clip:
             g = _clip_tree(g, max_norm, differentiable=True)
         adapted = [p - inner_lr * gi for p, gi in zip(params, g)]
@@ -329,12 +443,14 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             query = {"features": feats, "input_lengths": lengths,
                      "targets": query["targets"],
                      "src_percentages": query["src_percentages"]}
-        k = support["targets"].shape[0]
+        k_local = support["targets"].shape[0]
+        k = k_local * (1 if mesh is None else mesh.task.size)
+        first = 0 if mesh is None else mesh.coords["task"] * k_local
         gsum = None  # the sum over the tasks of the model's gradients
         # at the adapted weights, then the discriminator's
         q_losses, s_losses, s_aux, q_aux, terms, ces = [], [], [], [], [], []
         stats = []  # the query forwards' BatchNorm statistics
-        for i in range(k):
+        for i in range(k_local):
             s_loss, aux = forward(None, _task_batch(support, i), generator,
                                   False)
             q = _task_batch(query, i) if per_task_query else query
@@ -344,6 +460,8 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
                     names, params, s_loss, q, generator, stats[-1])
             else:
                 g = list(torch.autograd.grad(s_loss, params))
+                if mesh is not None:
+                    g = comm.all_reduce_list(g, mesh.data)
                 if clip:
                     g = _clip_tree(g, max_norm)
                 with torch.no_grad():
@@ -357,9 +475,9 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
                                         stats_out=stats[-1])
                 if head is not None:
                     ces.append(q_loss.detach())
-                    terms.append(head.terms(aux_q.pop("enc"),
-                                            i if per_task_query else k - 1,
-                                            beta))
+                    terms.append(head.terms(
+                        aux_q.pop("enc"),
+                        first + i if per_task_query else k - 1, beta))
                     q_loss = q_loss + terms[-1][0]
                 gq = list(torch.autograd.grad(q_loss, adapted + d_params))
             if gsum is None:
@@ -371,32 +489,49 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             s_aux.append(aux)
             q_aux.append(aux_q)
             del s_loss, q_loss  # the task's graph, before the next task
+        if mesh is not None:
+            gsum = comm.all_reduce_list(gsum, mesh.world)
         torch._foreach_div_(gsum, k)
         gsum, dsum = gsum[:len(params)], gsum[len(params):]
         if clip:
             gsum = _clip_tree(gsum, max_norm)
         outer_optimizer.update(dict(zip(names, gsum)), state.opt_state,
                                state.params)
-        _merge_batch_stats(model, stats)
+        _merge_batch_stats(model, stats, mesh)
+        s_hyp = torch.stack([a["hyp"] for a in s_aux])
+        s_gold = torch.stack([a["gold"] for a in s_aux])
         metrics = {
-            "outer_loss": torch.stack(q_losses).mean(),
-            "support_losses": torch.stack(s_losses),
-            "support_hyp": torch.stack([a["hyp"] for a in s_aux]),
-            "support_gold": torch.stack([a["gold"] for a in s_aux]),
-            "query_hyp": torch.stack([a["hyp"] for a in q_aux]),
-            "query_gold": torch.stack([a["gold"] for a in q_aux]),
+            "outer_loss": _global(_task_mean(q_losses, mesh, k), mesh),
+            "support_losses": _support_losses(s_losses, mesh, first, k),
+            "support_hyp": _gather_tasks(s_hyp, mesh),
+            "support_gold": _gather_tasks(s_gold, mesh),
+            "query_hyp": _gather_tasks(
+                torch.stack([a["hyp"] for a in q_aux]), mesh),
+            "query_gold": _gather_tasks(
+                torch.stack([a["gold"] for a in q_aux]), mesh),
         }
         if with_cer:
-            metrics.update(_device_cer_metrics(
-                metrics["support_hyp"], metrics["support_gold"], space_id))
+            metrics.update(_device_cer_metrics(s_hyp, s_gold, space_id,
+                                               mesh))
         if head is not None:
             head.update(state, dsum)
-            metrics["query_ce"] = torch.stack(ces).mean()
-            metrics.update(head.metrics(terms))
+            metrics["query_ce"] = _global(_task_mean(ces, mesh, k), mesh)
+            metrics.update(head.metrics(terms, k))
         state.step += 1
         return state, metrics
 
     return step
+
+
+def _support_losses(s_losses: List[torch.Tensor], mesh, first: int,
+                    k: int) -> torch.Tensor:
+    """[K] support losses: on a mesh each rank's shares sit at its tasks'
+    places, summed over the ranks."""
+    if mesh is None:
+        return torch.stack(s_losses)
+    full = s_losses[0].new_zeros(k)
+    full[first:first + len(s_losses)] = torch.stack(s_losses)
+    return comm.all_reduce(full, mesh.world)
 
 
 def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:

@@ -14,6 +14,11 @@ meta steps with a ``DiscHead``: one backward reaches both parameter sets,
 and the model and the discriminator take their own updates. The
 discriminator's optimizer is plain SGD at ``lr_disc`` under ``--opt_name
 sgd`` (no momentum), else Adam at ``lr_disc`` (:74-76).
+
+On a mesh the discriminator is replicated like the model (never sharded,
+as mtl_tpu/train/trainer.py:633-637 keeps it): its gradients are reduced
+with the model's, and its batch means are this rank's share of the global
+batch's (equal shards over ``data``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from ..config import Config
 from ..models.discriminator import Discriminator, init_discriminator
+from ..parallel import comm
 from .losses import adversarial_losses
 from .optim import SGD, Adam, OptState
 from .steps import TrainState, make_joint_step, make_meta_step
@@ -64,6 +70,12 @@ class DiscHead:
         self.discriminator = discriminator
         self.adversarial = cfg.train.adversarial
         self.optimizer = disc_optimizer(cfg)
+        self.mesh = None
+
+    def on_mesh(self, mesh) -> None:
+        """Runs the head on this rank's slice of a ``mesh`` (None: one
+        process)."""
+        self.mesh = mesh
 
     @staticmethod
     def params(state: DiscTrainState) -> List[torch.Tensor]:
@@ -80,28 +92,36 @@ class DiscHead:
         """(the term added to the task's loss, disc CE, encoder MSE)."""
         disc_l, enc_l = adversarial_losses(self.discriminator(enc),
                                            accent_id)
+        if self.mesh is not None:
+            # batch means: this shard's share of the global batch's
+            disc_l, enc_l = (x / self.mesh.data.size for x in (disc_l, enc_l))
         term = beta * disc_l + enc_l if self.adversarial else disc_l
         return term, disc_l, enc_l
 
-    @staticmethod
-    def metrics(terms: List[tuple]) -> Dict[str, torch.Tensor]:
-        """The tasks' mean disc CE and encoder MSE."""
-        return {name: torch.stack([t[i] for t in terms]).mean().detach()
-                for i, name in ((1, "disc_loss"), (2, "enc_loss"))}
+    def metrics(self, terms: List[tuple], k: int
+                ) -> Dict[str, torch.Tensor]:
+        """The mean over the K tasks of the disc CE and encoder MSE."""
+        if self.mesh is None:
+            return {name: torch.stack([t[i] for t in terms]).mean().detach()
+                    for i, name in ((1, "disc_loss"), (2, "enc_loss"))}
+        sums = comm.all_reduce_list(
+            [torch.stack([t[i] for t in terms]).sum().detach()
+             for i in (1, 2)], self.mesh.world)
+        return {"disc_loss": sums[0] / k, "enc_loss": sums[1] / k}
 
 
 def make_joint_step_disc(model, discriminator: Discriminator, cfg: Config,
-                         optimizer) -> Callable:
+                         optimizer, mesh=None) -> Callable:
     """mtl_tpu/train/steps_disc.py:189: the joint step with the head."""
     return make_joint_step(model, cfg, optimizer,
-                           head=DiscHead(discriminator, cfg))
+                           head=DiscHead(discriminator, cfg), mesh=mesh)
 
 
 def make_meta_step_disc(model, discriminator: Discriminator, cfg: Config,
-                        outer_optimizer, per_task_query: bool = False
-                        ) -> Callable:
+                        outer_optimizer, per_task_query: bool = False,
+                        mesh=None) -> Callable:
     """mtl_tpu/train/steps_disc.py:77: the first-order meta step with the
     head on each task's query loss (``make_meta_step`` refuses
     ``--second-order`` with a head, as :91-98 does)."""
     return make_meta_step(model, cfg, outer_optimizer, per_task_query,
-                          head=DiscHead(discriminator, cfg))
+                          head=DiscHead(discriminator, cfg), mesh=mesh)

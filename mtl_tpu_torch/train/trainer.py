@@ -32,7 +32,21 @@ else the weights alone, as the JAX trainers fall back to params. The epoch
 trainer restores strictly, as the JAX one does. ``meta_evaluate`` is
 meta-test: one inner step on a support draw, then evaluation at the
 adapted weights; it stays first order under ``--second-order``, as in the
-JAX package. Mesh axes are not ported yet.
+JAX package.
+
+On a mesh (``--mesh-task`` / ``--mesh-data``, ``parallel/``), every rank
+runs the loop: it draws the same batch from the same seeded stream and
+keeps its ``[K / task, B / data]`` slice, and the steps reduce over the
+ranks (train/steps.py), so every rank holds the same weights after each
+step. Rank 0 alone prints, evaluates, profiles and writes checkpoints, as
+the JAX package evaluates replicated params outside the mesh
+(mtl_tpu/train/trainer.py:229-245); every rank restores a checkpoint,
+which holds full tensors, and ``replicate_state`` then makes rank 0's
+weights everyone's. A decision that ends or skips an iteration is taken
+for all ranks at once: the early stop is rank 0's, broadcast; a batch that
+fails to load on any rank is dropped on every rank. Each rank draws its
+dropout from its own generator, seeded from the run's seed and its rank.
+Tensor-parallel training (``--mesh-model > 1``) is not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +66,9 @@ from ..data.dataset import SpectrogramDataset
 from ..data.vocab import Vocab, post_process
 from ..models.discriminator import Discriminator
 from ..models.transformer import init_weights
+from ..parallel import comm
+from ..parallel.mesh import (replicate_state, shard_batch,
+                             shard_batch_prefix, validate_mesh_divisibility)
 from ..utils.checkpoint import load_checkpoint, load_train_state, \
     save_checkpoint
 from ..utils.logger import log_print
@@ -195,11 +212,45 @@ class EarlyStopper:
 def check_ported(cfg: Config) -> None:
     """Raises for the training options the port does not have yet."""
     missing = [flag for flag, on in (
-        ("--mesh-task/--mesh-data/--mesh-model > 1",
-         max(cfg.mesh.task, cfg.mesh.data, cfg.mesh.model) > 1),
+        ("--mesh-model > 1 (tensor-parallel training)", cfg.mesh.model > 1),
     ) if on]
     if missing:
         raise ValueError(f"{', '.join(missing)}: not ported yet")
+
+
+def check_mesh(cfg: Config, shape, num_tasks: int, kind: str) -> None:
+    """The JAX trainers' refusals of a mesh ``shape`` (task, data, ...):
+    ``kind`` "meta" (a meta trainer without a discriminator head,
+    mtl_tpu/train/trainer.py:303-307, 363-370), "joint" (a joint trainer,
+    or a meta trainer with the head, :628-637) or "epoch" (:783-793)."""
+    task, data = shape[0], shape[1]
+    if kind == "epoch":
+        if task > 1:
+            raise ValueError(
+                "--mesh-task > 1 is a meta/joint-trainer axis; the epoch "
+                "trainer shards over --mesh-data only"
+            )
+        if cfg.data.batch_size % data:
+            raise ValueError(
+                f"--mesh-data {data} must divide "
+                f"--batch-size ({cfg.data.batch_size})"
+            )
+        return
+    if kind == "meta" and cfg.train.scan_tasks and task > 1:
+        raise ValueError(
+            "--scan-tasks serializes the task axis; it cannot be "
+            "combined with --mesh-task > 1 (tasks are sharded there)")
+    validate_mesh_divisibility(shape, num_tasks, cfg.train.k_train,
+                               cfg.train.k_valid)
+
+
+def rank_generator(device: torch.device, seed: int, mesh=None
+                   ) -> torch.Generator:
+    """The dropout generator of a run: seeded from the run's seed, and on
+    a mesh from the rank too (rank 0 keeps the run's seed)."""
+    rank = 0 if mesh is None else mesh.rank
+    return torch.Generator(device).manual_seed(
+        (seed + 1_000_003 * rank) % (2 ** 63))
 
 
 class TrainerBase:
@@ -210,17 +261,28 @@ class TrainerBase:
 
     def __init__(self, model: torch.nn.Module, cfg: Config, vocab: Vocab,
                  device: torch.device,
-                 discriminator: Optional[Discriminator] = None):
+                 discriminator: Optional[Discriminator] = None, mesh=None):
         """``discriminator`` (on ``device``) turns on the adversarial or
-        multitask head, as ``cfg.train.adversarial`` says."""
+        multitask head, as ``cfg.train.adversarial`` says; ``mesh``
+        (``parallel/mesh.py``, None: one process) is this rank's."""
         check_ported(cfg)
         self.model = model
         self.discriminator = discriminator
         self.cfg = cfg
         self.vocab = vocab
         self.device = device
+        self.mesh = mesh
+        self.is_root = mesh is None or mesh.is_root
         self.space_id = vocab.label2id.get(" ")
         self.eval_step = make_eval_step(model, cfg)
+        if mesh is not None:
+            where = (f"{min(mesh.size, torch.cuda.device_count())} card(s)"
+                     if device.type == "cuda" else "the CPU")
+            log_print(
+                "MESH: task={task} data={data} model={model} over {n} {plat} "
+                "device(s) (one process per rank over {backend} on "
+                "{where})".format(**mesh.shape, n=mesh.size, plat=device.type,
+                                  backend=mesh.backend, where=where))
         if (cfg.train.save_every % max(cfg.train.evaluate_every, 1) != 0
                 and cfg.train.evaluate_every % max(cfg.train.save_every, 1)
                 != 0):
@@ -288,10 +350,25 @@ class TrainerBase:
         if self.cfg.train.device_cer and "cer_dist" in metrics:
             return (int(metrics["cer_dist"]),
                     max(int(metrics["cer_chars"]), 1))
-        if (n + 1) % max(self.cfg.train.train_cer_every, 1) == 0:
+        if (n + 1) % max(self.cfg.train.train_cer_every, 1) == 0 \
+                and self.is_root:
             return batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
                              self.vocab)
         return 0, 1
+
+    def _shard(self, batch: Dict[str, np.ndarray], task_axis: bool
+               ) -> Dict[str, np.ndarray]:
+        """This rank's slice of a host batch (the batch itself without a
+        mesh)."""
+        if self.mesh is None:
+            return batch
+        return shard_batch(batch, self.mesh, task_axis)
+
+    def _stop_all(self, stop: bool) -> bool:
+        """Rank 0's early-stop decision, on every rank."""
+        if self.mesh is None:
+            return stop
+        return comm.broadcast_flag(stop, self.mesh.world, self.device)
 
 
     # -- the loop shared by the trainers; the subclasses' hooks: ---------
@@ -320,6 +397,8 @@ class TrainerBase:
                 raise ValueError(f"{cfg.continue_from}: the checkpoint's "
                                  f"optimizer state does not fit this run's")
             log_print(f"RESTORED STATE from {cfg.continue_from}")
+        if self.mesh is not None:
+            replicate_state(self.model, state, self.mesh)
         return state
 
     def _restore(self, state: TrainState, saved: dict) -> bool:
@@ -352,6 +431,8 @@ class TrainerBase:
         serves any training checkpoint; the optimizer state (at
         ``train_step``, default ``step``) and the discriminator go beside
         it."""
+        if not self.is_root:
+            return
         disc = None
         if self.discriminator is not None:
             disc = (state.disc_params, state.disc_opt_state)
@@ -371,7 +452,10 @@ class TrainerBase:
             # the JAX trainer's init batch: keeps the stream aligned
             self.fetch(train_dataset)
             state = self._build_state(opt)
-        generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
+        if self.mesh is not None:
+            check_mesh(cfg, [self.mesh.shape[a] for a in ("task", "data")],
+                       len(train_dataset.ids_list), self.mesh_kind)
+        generator = rank_generator(self.device, cfg.train.seed, self.mesh)
 
         # the prefetch starts after the initial draw: two threads drawing
         # from the dataset's RandomState would reorder the stream; several
@@ -383,7 +467,8 @@ class TrainerBase:
                 cfg.train.prefetch_workers, start=start_it)
         else:
             prefetch = Prefetcher(lambda: self.fetch(train_dataset))
-        profiler = _IterationProfiler(cfg, self.device, start_it)
+        profiler = _IterationProfiler(cfg, self.device, start_it,
+                                      self.is_root)
         try:
             return self._loop(state, step_fn, prefetch, profiler, generator,
                               valid_sets, start_it, num_it, last_metrics)
@@ -410,12 +495,19 @@ class TrainerBase:
             # joint_trainer.py:391-405): a data error drops the batch,
             # refetches and keeps `it`
             try:
-                batch = prefetch.get()
+                batch, error = prefetch.get(), None
             except Exception as e:
+                batch, error = None, e
+            if self.mesh is not None and comm.any_flag(
+                    error is not None, self.mesh.world, self.device) \
+                    and error is None:
+                error = RuntimeError("a batch failed to load on another "
+                                     "rank")
+            if error is not None:
                 failures += 1
-                log_print(f"Error: {e!r}, fetching new data...")
+                log_print(f"Error: {error!r}, fetching new data...")
                 if failures >= self.MAX_CONSECUTIVE_FAILURES:
-                    raise
+                    raise error
                 continue
             failures = 0
             start_time = time.time()
@@ -449,27 +541,38 @@ class TrainerBase:
                 )
 
             if (it + 1) % cfg.train.evaluate_every == 0:
-                avg_loss, avg_cer, vlosses, vcers = self.evaluate(valid_sets,
-                                                                  it)
-                metrics = {
-                    "avg_valid_loss": avg_loss,
-                    "avg_valid_cer": avg_cer,
-                    "valid_loss": vlosses,
-                    "valid_cer": vcers,
-                    "history": history,
-                }
-                history.append(dict(metrics, history=None))
-                if (it + 1) % cfg.train.save_every == 0:
-                    self._save(state, it + 1, metrics)
-                if stopper.update(avg_loss, avg_cer):
-                    self._save(state, it + 1, metrics, best_model=True)
-                else:
-                    log_print(f"count_stop: {stopper.count}")
-                if stopper.should_stop:
+                stop = False
+                if self.is_root:
+                    stop = self._evaluate_and_save(state, valid_sets, it,
+                                                   stopper, history)
+                if self._stop_all(stop):
                     log_print("EARLY STOP")
                     break
             it += 1
         return state
+
+    def _evaluate_and_save(self, state, valid_sets, it: int,
+                           stopper: EarlyStopper, history: List[dict]
+                           ) -> bool:
+        """The evaluation of iteration ``it`` and its checkpoints; True
+        when the early stop fires."""
+        cfg = self.cfg
+        avg_loss, avg_cer, vlosses, vcers = self.evaluate(valid_sets, it)
+        metrics = {
+            "avg_valid_loss": avg_loss,
+            "avg_valid_cer": avg_cer,
+            "valid_loss": vlosses,
+            "valid_cer": vcers,
+            "history": history,
+        }
+        history.append(dict(metrics, history=None))
+        if (it + 1) % cfg.train.save_every == 0:
+            self._save(state, it + 1, metrics)
+        if stopper.update(avg_loss, avg_cer):
+            self._save(state, it + 1, metrics, best_model=True)
+        else:
+            log_print(f"count_stop: {stopper.count}")
+        return stopper.should_stop
 
 
 class _IterationProfiler:
@@ -477,10 +580,13 @@ class _IterationProfiler:
     device) from iteration ``start + 3`` to ``start + 8``, written as a
     Chrome trace under the directory, then the JAX package's ``PROFILE
     written to ...`` line (mtl_tpu/train/trainer.py:404-411). ``close()``
-    ends a trace still running when the loop stops early."""
+    ends a trace still running when the loop stops early. On a mesh rank 0
+    alone traces (``enabled``)."""
 
-    def __init__(self, cfg: Config, device: torch.device, start_it: int):
-        self.dir, self.name = cfg.train.profile_dir, cfg.name
+    def __init__(self, cfg: Config, device: torch.device, start_it: int,
+                 enabled: bool = True):
+        self.dir = cfg.train.profile_dir if enabled else ""
+        self.name = cfg.name
         self.device, self.start = device, start_it
         self.prof = None
 
@@ -526,15 +632,20 @@ class TransientTrainer(TrainerBase):
     def logged_lr(self) -> float:
         return self.cfg.train.meta_lr
 
+    @property
+    def mesh_kind(self) -> str:
+        return "meta" if self.discriminator is None else "joint"
+
     def make_optimizer(self):
         return make_meta_optimizers(self.cfg)[1]
 
     def make_step(self, opt):
         if self.discriminator is not None:
             return make_meta_step_disc(self.model, self.discriminator,
-                                       self.cfg, opt, self.per_task_query)
+                                       self.cfg, opt, self.per_task_query,
+                                       mesh=self.mesh)
         return make_meta_step(self.model, self.cfg, opt, self.per_task_query,
-                              space_id=self.space_id)
+                              space_id=self.space_id, mesh=self.mesh)
 
     def fetch(self, train_dataset: SpectrogramDataset, rng=None):
         cfg = self.cfg
@@ -543,7 +654,10 @@ class TransientTrainer(TrainerBase):
             per_task_query=self.per_task_query, rng=rng)
 
     def run_step(self, step_fn, state, batch, generator, beta):
-        support, query = (batch_to_device(b, self.device) for b in batch)
+        # the shared query is sharded over data, MAML's over (task, data)
+        support, query = (
+            batch_to_device(self._shard(b, task_axis), self.device)
+            for b, task_axis in zip(batch, (True, self.per_task_query)))
         state, m = step_fn(state, support, query, generator, beta)
         return (state, m["outer_loss"], m["support_hyp"], m["support_gold"],
                 m)
@@ -616,6 +730,8 @@ class JointTrainer(TrainerBase):
     SGD with nesterov momentum (``--opt_name sgd``), optionally with the
     discriminator head."""
 
+    mesh_kind = "joint"
+
     @property
     def logged_lr(self) -> float:
         return self.cfg.train.lr
@@ -626,9 +742,9 @@ class JointTrainer(TrainerBase):
     def make_step(self, opt):
         if self.discriminator is not None:
             return make_joint_step_disc(self.model, self.discriminator,
-                                        self.cfg, opt)
+                                        self.cfg, opt, mesh=self.mesh)
         return make_joint_step(self.model, self.cfg, opt,
-                               space_id=self.space_id)
+                               space_id=self.space_id, mesh=self.mesh)
 
     def fetch(self, train_dataset: SpectrogramDataset, rng=None):
         # the JAX trainer's draw: every task's k_train support batch and a
@@ -637,8 +753,9 @@ class JointTrainer(TrainerBase):
                                                rng=rng)[0]
 
     def run_step(self, step_fn, state, batch, generator, beta):
-        state, loss, aux = step_fn(state, batch_to_device(batch, self.device),
-                                   generator, beta)
+        state, loss, aux = step_fn(
+            state, batch_to_device(self._shard(batch, True), self.device),
+            generator, beta)
         return state, loss, aux["hyp"], aux["gold"], aux
 
 
@@ -648,7 +765,12 @@ class EpochTrainer(TrainerBase):
     batches of the train set as K = 1 joint steps (a failing batch is
     skipped), the epoch's TRAIN line, an evaluation, a checkpoint at
     ``epoch + 1`` (what a resume continues after) and the best model,
-    written with step ``epoch`` as the JAX package writes it."""
+    written with step ``epoch`` as the JAX package writes it. On a mesh the
+    batches are sharded over ``data`` alone (the trainer refuses ``task >
+    1``), and a failing step raises: the other ranks are inside its
+    collectives, so no rank can skip it alone."""
+
+    mesh_kind = "epoch"
 
     def train(self, train_dataset: SpectrogramDataset,
               valid_sets: Sequence[SpectrogramDataset],
@@ -657,27 +779,34 @@ class EpochTrainer(TrainerBase):
         cfg = self.cfg
         opt = make_epoch_optimizer(cfg)
         step_fn = make_joint_step(self.model, cfg, opt,
-                                  space_id=self.space_id)
-        generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
+                                  space_id=self.space_id, mesh=self.mesh)
+        generator = rank_generator(self.device, cfg.train.seed, self.mesh)
         stopper = EarlyStopper(cfg.train.early_stop)
         if state is None:
             # the JAX trainer's example batch: it takes one shuffle of the
             # dataset's RandomState before epoch 0
             next(train_dataset.iter_batches(cfg.data.batch_size))
             state = self._build_state(opt, strict=True)
+        if self.mesh is not None:
+            check_mesh(cfg, [self.mesh.shape[a] for a in ("task", "data")],
+                       len(train_dataset.ids_list), self.mesh_kind)
         for epoch in range(start_epoch, num_epochs):
             total_loss, total_cer, total_char, n = 0.0, 0, 0, 0
             failures = 0
             for batch in train_dataset.iter_batches(cfg.data.batch_size):
+                batch = {k: v[None] for k, v in batch.items()}
+                if self.mesh is not None:
+                    batch = shard_batch_prefix(batch, self.mesh,
+                                               (None, "data"))
                 # per-batch skip on error (reference trainer.py:132-171)
                 try:
                     state, loss, aux = step_fn(
-                        state, batch_to_device(
-                            {k: v[None] for k, v in batch.items()},
-                            self.device), generator)
+                        state, batch_to_device(batch, self.device), generator)
                     cer, nchar = self._train_cer(aux["hyp"], aux["gold"], aux,
                                                  n)
                 except Exception as e:
+                    if self.mesh is not None:
+                        raise
                     failures += 1
                     log_print(f"Error: {e!r}, skipping batch...")
                     if failures >= self.MAX_CONSECUTIVE_FAILURES:
@@ -691,15 +820,18 @@ class EpochTrainer(TrainerBase):
             log_print("(Epoch {}) TRAIN LOSS:{:.4f} CER:{:.2f}%".format(
                 epoch, total_loss / max(n, 1),
                 total_cer * 100.0 / max(total_char, 1)))
-            avg_loss, avg_cer, _, _ = self.evaluate(valid_sets, epoch)
-            # the optimizer's step count rides along: an epoch is many
-            self._save(state, epoch + 1, {"avg_valid_loss": avg_loss,
-                                          "avg_valid_cer": avg_cer},
-                       train_step=state.step)
-            if stopper.update(avg_loss, avg_cer):
-                self._save(state, epoch, None, best_model=True,
+            stop = False
+            if self.is_root:
+                avg_loss, avg_cer, _, _ = self.evaluate(valid_sets, epoch)
+                # the optimizer's step count rides along: an epoch is many
+                self._save(state, epoch + 1, {"avg_valid_loss": avg_loss,
+                                              "avg_valid_cer": avg_cer},
                            train_step=state.step)
-            if stopper.should_stop:
+                if stopper.update(avg_loss, avg_cer):
+                    self._save(state, epoch, None, best_model=True,
+                               train_step=state.step)
+                stop = stopper.should_stop
+            if self._stop_all(stop):
                 log_print("EARLY STOP")
                 break
         return state

@@ -5,6 +5,10 @@ machine, where JAX may be absent, run them without the repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
+(The mesh tests import ``torch_mesh_worker`` from this directory, which
+pytest puts first on ``sys.path``: an environment's site-packages may hold
+a ``tests`` package of its own.)
+
 Shapes cover ragged time and freq tiles (odd T and F, T not a multiple of
 16), both channel configurations (vgg_cnn 64/128, large_cnn 32/64), the
 flagship shapes, both routes of the STFT, which n_fft chooses (every FFT
@@ -27,7 +31,10 @@ Conformer encoder at f32 against the CPU (1e-4), a second-order meta step
 at f32 against the CPU (no VGG kernel launched; gradients 1e-3 of the
 largest, as the first-order steps) and ``--remat`` on against off on the
 card (equal loss and generator state, gradients within 2^-8 of the
-largest, at dropout 0.1, bf16).
+largest, at dropout 0.1, bf16); a meta step on a 2-rank gloo mesh sharing
+the card against the step in one process (gradients within 1e-4 of the
+largest), and the sequence-parallel encode over 2 ranks on the card
+against the unsharded encode.
 Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
@@ -919,3 +926,90 @@ def test_remat_on_the_card_keeps_loss_gradients_and_generator(dev, encoder):
     # --remat-conv runs the VGG kernels again in the recompute
     assert c0["vgg_block1"] == 1 and c1["vgg_block1"] == 2, (c0, c1)
     assert c0["vgg_stack_bwd"] == c1["vgg_stack_bwd"] == 1, (c0, c1)
+
+
+def _mesh_case(kind, shape, support, query, cfg, weights):
+    return {"kind": kind, "shape": shape, "cfg": cfg.to_json(),
+            "vocab_size": 20, "state_dict": weights,
+            "support": {k: v.numpy() for k, v in support.items()},
+            "query": {k: v.numpy() for k, v in query.items()}}
+
+
+def test_two_rank_gloo_meta_step_on_one_card_matches_one_process(dev):
+    """A first-order meta step (inner and outer clip) on (task 1, data 2),
+    two ranks sharing the card over gloo (tests/torch_mesh_worker.py),
+    against the same step in this process on the card, f32: outer loss
+    1e-5 relative, outer gradients within 1e-4 of the largest, and every
+    rank holding the same weights after it."""
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.parallel import launch
+    from mtl_tpu_torch.train.steps import init_train_state, make_meta_step
+    from torch_mesh_worker import RecordingAdam, run_step_cases
+
+    cfg = _small_cfg()
+    support = _audio_batches(2)
+    query = {k: v[0] for k, v in _audio_batches(1, seed=1).items()}
+    model = build_model(cfg, 20, dev)
+    init_weights(model, torch.Generator().manual_seed(0))
+    weights = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    mesh_cfg = Config()
+    mesh_cfg.mesh.data = 2
+    got = launch.run(mesh_cfg, dev, run_step_cases, [_mesh_case(
+        "meta", (1, 2), support, query, cfg, weights)], "cuda")[0]
+    assert launch.backend_for(dev, 2) == (
+        "nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    assert got["same_on_every_rank"]
+    opt = RecordingAdam(cfg.train.meta_lr)
+    _, m = make_meta_step(model, cfg, opt)(
+        init_train_state(model, opt),
+        {k: v.to(dev) for k, v in support.items()},
+        {k: v.to(dev) for k, v in query.items()})
+    np.testing.assert_allclose(got["metrics"]["outer_loss"],
+                               float(m["outer_loss"]), rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in opt.grads.values())
+    for k, g in opt.grads.items():
+        np.testing.assert_allclose(got["grads"][k], g.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_sp_on_the_card_matches_the_unsharded_encode(dev, dtype):
+    """The sequence-parallel encode over 2 ranks sharing the card (the VGG
+    kernels on each rank's haloed slice, K/V all-gathered) against the
+    unsharded encode on the card, 1001 frames (no multiple of 8), d 64. f32:
+    within 1e-5. bf16: the two encodes' linears run GEMMs of other shapes
+    (125 and 250 rows a batch row), whose f32 sums may round to
+    neighbouring bf16 values, and the next layers carry that on (1.5 ulps
+    of the largest output apart on an H100; at the flagship width,
+    chip_smoke.py phase 29, they are equal). So each is held to the f32
+    encode of the same weights: the sequence-parallel one no further from
+    it than the unsharded bf16 one, by its largest difference (x 1.25) and
+    its mean difference (x 1.1)."""
+    from mtl_tpu_torch.config import Config
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.parallel import launch
+    from torch_mesh_worker import run_encode_cases
+
+    cfg = _small_cfg(dtype=dtype)
+    model = build_model(cfg, 20)
+    init_weights(model, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    mesh_cfg = Config()
+    mesh_cfg.mesh.data = 2
+    got = launch.run(mesh_cfg, dev, run_encode_cases, [{
+        "shape": (1, 2), "cfg": cfg.to_json(), "vocab_size": 20,
+        "reference_cfg": _small_cfg(dtype="float32").to_json(),
+        "state_dict": {k: v.numpy() for k, v in model.state_dict().items()},
+        "features": rng.randn(2, 1001, 161).astype(np.float32),
+        "lengths": np.array([1001, 700], np.int32)}], "cuda")[0]
+    if dtype == "float32":
+        assert float(np.abs(got["sp"] - got["plain"]).max()) <= 1e-5
+    else:
+        sp, plain = (np.abs(got[k] - got["reference"]) for k in ("sp",
+                                                                  "plain"))
+        assert float(sp.max()) <= 1.25 * float(plain.max())
+        assert float(sp.mean()) <= 1.1 * float(plain.mean())
+    suffix = "" if dtype == "bfloat16" else "_f32"
+    assert all(c[f"vgg_block1{suffix}"] == c[f"vgg_block2{suffix}"] == 1
+               for c in got["sp_counts"]), got["sp_counts"]

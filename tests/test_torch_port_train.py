@@ -743,8 +743,7 @@ def test_early_stopper_parity():
             assert (a.count, a.should_stop) == (b.count, b.should_stop)
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("mesh.data", 2), ("mesh.task", 2), ("mesh.model", 2)])
+@pytest.mark.parametrize("flag,value", [("mesh.model", 2)])
 def test_unported_training_options_raise(flag, value):
     from mtl_tpu_torch.train.trainer import check_ported
 
@@ -759,12 +758,15 @@ def test_unported_training_options_raise(flag, value):
 @pytest.mark.parametrize("flag,value", [
     ("train.prefetch_workers", 2), ("train.device_cer", True),
     ("train.profile_dir", "/x"), ("train.second_order", True),
-    ("model.remat", True), ("model.remat_conv", True)])
+    ("model.remat", True), ("model.remat_conv", True),
+    ("mesh.data", 2), ("mesh.task", 2)])
 def test_ported_training_options_are_accepted(flag, value):
-    """The options refused until the training-options slice and until the
-    second-order slice are accepted now (their behaviour:
-    tests/test_torch_port_options.py, test_torch_port_second_order.py and
-    test_torch_port_conformer.py)."""
+    """The options refused until the training-options slice, the
+    second-order slice and the mesh slice are accepted now (their
+    behaviour: tests/test_torch_port_options.py,
+    test_torch_port_second_order.py, test_torch_port_conformer.py and
+    test_torch_port_mesh.py); tensor-parallel training (``--mesh-model``)
+    is still refused."""
     from mtl_tpu_torch.train.trainer import check_ported
 
     cfg = Config()
