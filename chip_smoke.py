@@ -12,10 +12,15 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    20 ms / 10 ms, vgg_cnn) holds each kernel route against its plain
    PyTorch version on the card, with TF32 off, and times kernel, plain
    version and a library yardstick with CUDA events: both routes of the
-   STFT (the FFT, served, and the direct DFT, timed in turns with it; the
-   yardstick is the cuFFT chain torch.stft -> abs -> log1p), and both
-   routes of both VGG blocks (bf16 tensor cores against the bf16-operand
-   plain version, f32 CUDA cores against the f32 one);
+   STFT (the FFT, served, and the direct DFT on 3xTF32 tensor cores, timed
+   in turns with it at n_fft 320 and with the cuFFT chain torch.stft ->
+   abs -> log1p at its own 22.05 kHz shape, n_fft 441, hop 220, 221
+   bins), and both routes of both VGG blocks (bf16 tensor cores against
+   the bf16-operand plain version; f32 -- block 1 on the CUDA cores, block
+   2 on 3xTF32 tensor cores -- against the f32 one). An f32 GEMM-form row
+   (the direct STFT, both f32 VGG blocks) is bound by the larger of its
+   bytes at 3.35 TB/s and its operations at the faster of f32 FMAs (67
+   TFLOP/s) and 3xTF32 (three passes at 495);
 4. writes a synthetic corpus of 4-8 s utterances (bucket 800 frames);
 5. saves a seeded-init port checkpoint at the flagship width (vgg_cnn,
    2 enc / 4 dec, d_model 512, 8 heads, d_k = d_v = 64, d_inner 512,
@@ -30,6 +35,13 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    versions) must give the same features, encoder output and decode-step
    logits; the counters are zeroed before the card's run and read after
    it, and both f32 VGG kernels must have launched;
+6b. (after 7) serves 8 synthetic utterances of 4-7.9 s at 22.05 kHz
+   (n_fft 441, hop 220, 221 bins) with a seeded checkpoint at the flagship
+   width (vgg_cnn on 221 bins) through ``test_main`` on ``cuda``, the
+   counters zeroed before and read after: the direct STFT once a batch,
+   the FFT STFT never, both bf16 VGG kernels once a batch (the direct
+   route's ``launches``); then one batch's front-end on the card against
+   the CPU (raw and normalized, rtol = atol = 1e-4);
 8. serves the same checkpoint and corpus by beam search with LM shallow
    fusion, README's command (``--beam-search --beam-width 8 --beam-nbest
    5 --lm-rescoring --lm-path``; horizon 200 steps at 800 frames): first
@@ -177,11 +189,15 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    ``test_main``: PRED lines and finite totals, every rank launched the
    FFT STFT and both bf16 VGG kernels once a batch; utterances/s and peak
    memory by rank;
-31. prints the kernels as one JSON line and, last, the result line.
+31. prints the kernels as one JSON line (6 records: both STFT routes and
+   the four VGG routes) and, last, the result line.
 
-Phase 3b holds both routes of both VGG blocks at the log-fbank shapes
-(80 bins into block 1, 40 into block 2) against their plain versions and
-prints their times beside phase 3's.
+Phases 3b and 3c hold both routes of both VGG blocks against their plain
+versions at the log-fbank shapes (80 bins into block 1, 40 into block 2)
+and at the 22.05 kHz path's (221 into block 1, 110 into block 2), and
+print their times beside phase 3's. Phase 3 also sums the cuFFT chain's
+kernels' device time a call (torch.profiler), the yardstick of the direct
+STFT's kernel alone.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -207,8 +223,11 @@ SEED = 0
 
 # flagship serving shapes
 B, T, N_FFT, HOP, NFREQ = 8, 800, 320, 160, 161
+# 22.05 kHz at the same 20 ms / 10 ms windows: the direct STFT route
+SR_22K, N_FFT_22K, HOP_22K = 22050, 441, 220
 # H100 SXM dense peaks (NVIDIA data sheet), at a 700 W power limit
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 495e12
 UTTERANCES = 20  # 3 served batches of 8, the last padded with duplicates
 
 
@@ -255,10 +274,45 @@ def _device_ms(fn, kernel, iters=20):
     return sum(times) / 1e3 / len(times)
 
 
+def _device_total_ms(fn, iters=20):
+    """Device time of all the kernels ``fn`` launches, summed per call, by
+    torch.profiler, and the kernels a call: a library chain's work on the
+    card without its launches' host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(times, "profiler saw no device work")
+    return sum(times) / 1e3 / iters, len(times) / iters
+
+
 def _bound_ms(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def _bound_f32_gemm(nbytes, flops):
+    """The bound of an f32 row in GEMM form (the direct STFT, both f32 VGG
+    blocks): the larger of the bytes at 3.35 TB/s and the operations at the
+    faster of f32 FMAs (67 TFLOP/s) and 3xTF32 (three passes at 495);
+    returns (ms, bound_by, a note naming the term that binds)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_f32, t_tf32 = flops / PEAK_F32, 3 * flops / PEAK_TF32
+    if t_bytes > min(t_f32, t_tf32):
+        return t_bytes * 1e3, "bytes", f"{nbytes} B at 3.35 TB/s"
+    term = ("3xTF32, three passes at 495 TFLOP/s" if t_tf32 <= t_f32
+            else "f32 FMAs at 67 TFLOP/s")
+    return (min(t_f32, t_tf32) * 1e3, "operations",
+            f"{flops:.3e} flop, {term}")
 
 
 def _nbytes(*tensors):
@@ -270,9 +324,11 @@ def check_kernels(torch, dev):
     shapes; returns the kernels' records (launches filled in later)."""
     import torch.nn.functional as F
 
-    from mtl_tpu_torch.ops.stft import (device_dft_matrices, device_fft_tables,
-                                        stft_logmag, stft_logmag_direct,
-                                        stft_logmag_plain, stft_route)
+    from mtl_tpu_torch.ops.stft import (WINDOWS, device_dft_matrices,
+                                        device_dft_tc_operands,
+                                        device_fft_tables, stft_logmag,
+                                        stft_logmag_direct, stft_logmag_plain,
+                                        stft_route)
     from mtl_tpu_torch.ops.vgg import (hwio_to_oihw, pack_block1_tc,
                                        pack_block2_tc, vgg_block1, vgg_block2,
                                        vgg_block_plain)
@@ -292,20 +348,23 @@ def check_kernels(torch, dev):
 
     # -- kernel 1: STFT log-magnitude, f32, both routes --------------------
     # n_fft 320 takes the FFT route on the served path; the direct route
-    # (the GEMM form, kept for n_fft with a prime factor above 5) runs
-    # through its launcher at the same shapes, as the old design's yardstick
+    # (the 3xTF32 GEMM, for n_fft with a prime factor above 5 in its half)
+    # runs through its launcher at the same shapes, in turns with it, for
+    # continuity with its former CUDA-core design's times (PERF.md), and
+    # at its own shape below
     s = (T - 1) * HOP + N_FFT
     audio = torch.from_numpy(
         rng.uniform(-0.5, 0.5, (B, s)).astype(np.float32)).to(dev)
     cos_b, nsin_b = device_dft_matrices(N_FFT, "hamming", dev)
+    packed = device_dft_tc_operands(N_FFT, "hamming", dev)
     win, tw = device_fft_tables(N_FFT, "hamming", dev)
     check(stft_route(N_FFT) == "fft", "n_fft 320 must take the FFT route")
     ref = stft_logmag_plain(audio, cos_b, nsin_b, T, HOP)
     routes = {  # name -> (call, kernel name for the profiler)
         "fft": (lambda: stft_logmag(audio, N_FFT, HOP, T, "hamming"),
                 "stft_fft_kernel"),
-        "direct": (lambda: stft_logmag_direct(audio, cos_b, nsin_b, T,
-                                              HOP), "stft_logmag_kernel"),
+        "direct": (lambda: stft_logmag_direct(audio, packed, N_FFT, T, HOP),
+                   "stft_dft_tc_kernel"),
     }
     errs = {}
     for route, (fn, _) in routes.items():
@@ -316,17 +375,19 @@ def check_kernels(torch, dev):
         d = (out - ref).abs()
         errs[route] = (float(d.max()),
                        float((d / ref.abs().clamp_min(1e-6)).max()))
-        # f32 on both sides; only the order of the sums differs
+        # f32 on both sides (the direct route's 3xTF32 products to ~2^-22);
+        # the sums run in other orders
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
-    def cufft_chain():
+    def cufft_chain(a, n_fft, hop, window):
         """The same function and layout in one library chain (cuFFT)."""
-        return torch.stft(audio, N_FFT, HOP, window=win, center=False,
+        return torch.stft(a, n_fft, hop, window=window, center=False,
                           return_complex=True).abs().log1p().transpose(
                               1, 2).contiguous()
 
-    lib_err = float((cufft_chain() - ref).abs().max())
-    torch.testing.assert_close(cufft_chain(), ref, rtol=1e-4, atol=1e-4)
+    lib_err = float((cufft_chain(audio, N_FFT, HOP, win) - ref).abs().max())
+    torch.testing.assert_close(cufft_chain(audio, N_FFT, HOP, win), ref,
+                               rtol=1e-4, atol=1e-4)
     # turns: direct, FFT, FFT, direct -- wrapper calls by CUDA events, the
     # kernel alone by torch.profiler
     turns = []
@@ -337,7 +398,7 @@ def check_kernels(torch, dev):
           for r in routes}
     plain_ms = _time_ms(
         lambda: stft_logmag_plain(audio, cos_b, nsin_b, T, HOP))
-    library_ms = _time_ms(cufft_chain)
+    library_ms = _time_ms(lambda: cufft_chain(audio, N_FFT, HOP, win))
     m = N_FFT // 2
     # the packed M-point complex FFT (5 M log2 M) and the split and
     # magnitude (~10 a bin), per frame; the GEMM form for the note
@@ -347,12 +408,23 @@ def check_kernels(torch, dev):
     bound, bound_by = _bound_ms(nbytes, fft_flops, PEAK_F32)
     fft_ms = sum(ms for ms, _ in by["fft"]) / 2
     fft_alone = [alone for _, alone in by["fft"]]
+    direct_ms = sum(ms for ms, _ in by["direct"]) / 2
+    direct_alone = sum(a for _, a in by["direct"]) / 2
+    d_bound, _, d_note = _bound_f32_gemm(_nbytes(audio, packed, ref),
+                                         gemm_flops)
     print("kernel stft_logmag turns (route, ms, kernel alone ms): "
           + "; ".join(f"{r} {ms:.4f} {a:.4f}" for r, ms, a in turns)
-          + f"; fft alone {bound / min(fft_alone):.3f} of its bound; direct "
-          f"route (csrc/stft.cu) max_abs_err {errs['direct'][0]:.3e} "
-          f"direct_ms {sum(ms for ms, _ in by['direct']) / 2:.4f}; cuFFT "
+          + f"; fft alone {bound / min(fft_alone):.3f} of its bound; cuFFT "
           f"chain max_abs_err {lib_err:.3e}", flush=True)
+    chain_dev, chain_n = _device_total_ms(
+        lambda: cufft_chain(audio, N_FFT, HOP, win))
+    print(f"kernel stft_logmag_direct at n_fft {N_FFT} (csrc/"
+          f"stft_dft_tc.cu, 3xTF32): max_abs_err {errs['direct'][0]:.3e} "
+          f"(the former CUDA-core design's: 2.4e-7); ms {direct_ms:.4f} "
+          f"alone {direct_alone:.4f} library_ms {library_ms:.4f} (device "
+          f"{chain_dev:.4f}, {chain_n:.1f} kernels a call) bound_ms "
+          f"{d_bound:.4f} ({d_note}); alone {d_bound / direct_alone:.3f} of "
+          f"its bound", flush=True)
     report({
         "name": "stft_logmag", "route": "cuda",
         "source": "mtl_tpu_torch/csrc/stft_fft.cu",
@@ -365,6 +437,59 @@ def check_kernels(torch, dev):
                        f"{gemm_flops / PEAK_F32 * 1e3:.4f} ms",
         "_path": "serve",
     }, *errs["fft"], "rtol=atol=1e-4 (f32, summation order)")
+
+    # the direct route at its own shape: 22.05 kHz, 20 ms / 10 ms windows
+    n_fft, hop = N_FFT_22K, HOP_22K
+    f = n_fft // 2 + 1
+    check(stft_route(n_fft) == "direct", f"n_fft {n_fft} takes the direct "
+                                         f"route")
+    a22 = torch.from_numpy(rng.uniform(
+        -0.5, 0.5, (B, (T - 1) * hop + n_fft)).astype(np.float32)).to(dev)
+    cos22, nsin22 = device_dft_matrices(n_fft, "hamming", dev)
+    packed22 = device_dft_tc_operands(n_fft, "hamming", dev)
+    win22 = torch.from_numpy(WINDOWS["hamming"](n_fft)).to(dev)
+    ref22 = stft_logmag_plain(a22, cos22, nsin22, T, hop)
+    direct22 = lambda: stft_logmag(a22, n_fft, hop, T, "hamming")  # noqa
+    out22 = direct22()
+    torch.cuda.synchronize()
+    check(out22.shape == ref22.shape == (B, T, f), "stft 22.05 kHz shape")
+    check(bool(torch.isfinite(out22).all()), "stft 22.05 kHz not finite")
+    d = (out22 - ref22).abs()
+    err22 = (float(d.max()), float((d / ref22.abs().clamp_min(1e-6)).max()))
+    torch.testing.assert_close(out22, ref22, rtol=1e-4, atol=1e-4)
+    lib22 = lambda: cufft_chain(a22, n_fft, hop, win22)  # noqa: E731
+    torch.testing.assert_close(lib22(), ref22, rtol=1e-4, atol=1e-4)
+    # turns: kernel, library, library, kernel
+    k_ms, l_ms = [], []
+    for which in ("kernel", "library", "library", "kernel"):
+        (k_ms if which == "kernel" else l_ms).append(
+            _time_ms(direct22 if which == "kernel" else lib22))
+    alone22 = _device_ms(direct22, "stft_dft_tc_kernel")
+    # the chain's device time: its kernels summed, without the host's
+    # launches, the yardstick of the kernel alone
+    lib_dev22, lib_n22 = _device_total_ms(lib22)
+    flops22 = 4 * B * T * n_fft * f
+    bound22, by22, note22 = _bound_f32_gemm(_nbytes(a22, packed22, ref22),
+                                            flops22)
+    print(f"kernel stft_logmag_direct at n_fft {n_fft}, hop {hop} (B {B}, T "
+          f"{T}, F {f}): turns kernel {k_ms[0]:.4f} / {k_ms[1]:.4f} ms, "
+          f"cuFFT chain {l_ms[0]:.4f} / {l_ms[1]:.4f} ms; kernel alone "
+          f"{alone22:.4f} ms against the chain's kernels {lib_dev22:.4f} ms "
+          f"({lib_n22:.1f} a call, device time); "
+          f"{bound22 / alone22:.3f} of its bound; "
+          f"max_abs_err {err22[0]:.3e} (the former design's: 2.4e-7 at "
+          f"n_fft 320)",
+          flush=True)
+    report({
+        "name": "stft_logmag_direct", "route": "cuda",
+        "source": "mtl_tpu_torch/csrc/stft_dft_tc.cu",
+        "replaces": "mtl_tpu/ops/stft_pallas.py:59",
+        "max_abs_err": err22[0], "ms": sum(k_ms) / 2,
+        "plain_ms": _time_ms(lambda: stft_logmag_plain(a22, cos22, nsin22,
+                                                       T, hop)),
+        "library_ms": sum(l_ms) / 2, "bound_ms": bound22, "bound_by": by22,
+        "_bound_note": note22, "_path": "serve22k",
+    }, *err22, "rtol=atol=1e-4 (f32; 3xTF32 products, summation order)")
 
     # -- kernels 2 and 3: fused VGG blocks, both routes --------------------
     def weights(c_in, c):
@@ -430,11 +555,13 @@ def check_kernels(torch, dev):
             source, path = "mtl_tpu_torch/csrc/vgg_tc.cu", "serve"
             kernel = f"{name}_tc_kernel"
         else:
-            # f32 on both sides (TF32 off); only summation order differs
+            # f32 on both sides (TF32 off; block 2's 3xTF32 products to
+            # ~2^-22); the sums run in other orders
             tol = "rtol=atol=1e-4 (f32, summation order)"
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-            bound, by = _bound_ms(_nbytes(x, *ws, out), flops, PEAK_F32)
-            note = f"{flops:.3e} flop at f32 67 TFLOP/s"
+            bound, by, note = _bound_f32_gemm(_nbytes(x, *ws, out), flops)
+            print(f"kernel {name}: max_abs_err {err:.3e} (the former "
+                  f"CUDA-core design's: {FORMER_F32_ERR[name]})", flush=True)
             xl = (x.reshape(B, t_img, f_img, c_in).permute(0, 3, 1, 2)
                   .contiguous(memory_format=torch.channels_last))
             wl = [hwio_to_oihw(w).contiguous(
@@ -442,8 +569,8 @@ def check_kernels(torch, dev):
                   for w in ws]
             # the f32 cuDNN chain in channels_last (TF32 off)
             library_ms = _time_ms(lambda: library(xl, *wl))
-            source, path = "mtl_tpu_torch/csrc/vgg.cu", "parity"
-            kernel = "vgg_block_kernel"
+            source, kernel = F32_ROUTES[name]
+            path = "parity"
         k_ms = _device_ms(lambda: fn(x, *ws, out_dtype=dtype), kernel)
         print(f"kernel {name}: {kernel} alone {k_ms:.4f} ms of device time "
               f"(torch.profiler), {bound / k_ms:.3f} of its bound", flush=True)
@@ -462,19 +589,29 @@ def check_kernels(torch, dev):
 
 
 FBANK_BINS = 80  # --feat logfbank: 80 mel bins into vgg_cnn
+BINS_22K = N_FFT_22K // 2 + 1  # 221 STFT bins into vgg_cnn at 22.05 kHz
+# the f32 VGG routes: source and kernel name; the max abs errors of their
+# former CUDA-core design (PERF.md)
+F32_ROUTES = {"vgg_block1_f32": ("mtl_tpu_torch/csrc/vgg.cu",
+                                 "vgg_block_kernel"),
+              "vgg_block2_f32": ("mtl_tpu_torch/csrc/vgg_f32_tc.cu",
+                                 "vgg_block2_f32tc_kernel")}
+FORMER_F32_ERR = {"vgg_block1_f32": "8.3e-7 at 161 bins, 8.9e-7 at 80",
+               "vgg_block2_f32": "7.5e-7 at 161 bins, 1.2e-6 at 40"}
 
 
-def check_kernels_fbank(torch, dev):
-    """Phase 3b: both routes of both VGG blocks at the log-fbank shapes
-    (batch 8, 800 frames x 80 bins; block 2 at 400 x 40 x 64) against
-    their plain versions, as phase 3 holds them at 161 bins, with the same
-    tolerances, times (CUDA events), bounds and library chains."""
+def check_kernels_width(torch, dev, bins, seed):
+    """Phases 3b and 3c: both routes of both VGG blocks at another path's
+    front-end width (batch 8, 800 frames x ``bins``; block 2 on block 1's
+    output of the same route, 400 x bins // 2 x 64) against their plain
+    versions, as phase 3 holds them at 161 bins, with the same tolerances,
+    times (CUDA events), bounds and library chains."""
     import torch.nn.functional as F
 
     from mtl_tpu_torch.ops.vgg import (hwio_to_oihw, vgg_block1, vgg_block2,
                                        vgg_block_plain)
 
-    rng = np.random.RandomState(SEED + 7)
+    rng = np.random.RandomState(seed)
     bf16, f32 = torch.bfloat16, torch.float32
 
     def weights(c_in, c):
@@ -486,7 +623,7 @@ def check_kernels_fbank(torch, dev):
               rng.randn(c) * 0.1]
         return [torch.from_numpy(w.astype(np.float32)).to(dev) for w in ws]
 
-    x1 = torch.from_numpy(rng.randn(B, T, FBANK_BINS).astype(
+    x1 = torch.from_numpy(rng.randn(B, T, bins).astype(
         np.float32)).to(dev)
     w_1, w_2 = weights(1, 64), weights(64, 128)
     x2 = {d: vgg_block1(x1, *w_1, out_dtype=d) for d in (bf16, f32)}
@@ -500,18 +637,21 @@ def check_kernels_fbank(torch, dev):
         torch.cuda.synchronize()
         t_img, f_img = x.shape[1], x.shape[2]
         check(out.shape == ref.shape == (B, t_img // 2, f_img // 2, c),
-              f"{name} at {FBANK_BINS} bins: shape")
+              f"{name} at {bins} bins: shape")
         d = (out.float() - ref.float()).abs()
         if dtype == bf16:  # one bf16 ulp, as phase 3
             bad = int((d > 2.0 ** -7 * ref.float().abs() + 2.0 ** -10).sum())
-            check(bad == 0, f"{name} at {FBANK_BINS} bins: {bad} outside "
+            check(bad == 0, f"{name} at {bins} bins: {bad} outside "
                             f"one bf16 ulp")
             peak, tol = PEAK_BF16, "one bf16 ulp"
         else:
             torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-            peak, tol = PEAK_F32, "rtol=atol=1e-4"
+            peak, tol = None, "rtol=atol=1e-4"
         flops = 2 * B * t_img * f_img * 9 * (c_in * c + c * c)
-        bound, by = _bound_ms(_nbytes(x, *ws, out), flops, peak)
+        if peak is None:  # the f32 rows' restated bound
+            bound, by, _ = _bound_f32_gemm(_nbytes(x, *ws, out), flops)
+        else:
+            bound, by = _bound_ms(_nbytes(x, *ws, out), flops, peak)
         xl = (x.reshape(B, t_img, f_img, c_in).permute(0, 3, 1, 2).to(dtype)
               .contiguous(memory_format=torch.channels_last))
         wl = [hwio_to_oihw(w).to(dtype).contiguous(
@@ -525,11 +665,35 @@ def check_kernels_fbank(torch, dev):
 
         ms = _time_ms(lambda: fn(x, *ws, out_dtype=dtype))
         plain_ms = _time_ms(lambda: vgg_block_plain(x, *ws, out_dtype=dtype))
-        print(f"kernel {name} at {FBANK_BINS} bins ([{B}, {t_img}, {f_img}"
+        alone = ""
+        if dtype == f32:
+            k_ms = _device_ms(lambda: fn(x, *ws, out_dtype=dtype),
+                              F32_ROUTES[name][1])
+            alone = (f"; alone {k_ms:.4f} ms, {bound / k_ms:.3f} of its "
+                     f"bound; the former design's max_abs_err "
+                     f"{FORMER_F32_ERR[name]}")
+        print(f"kernel {name} at {bins} bins ([{B}, {t_img}, {f_img}"
               f"{'' if c_in == 1 else f', {c_in}'}]): max_abs_err "
               f"{float(d.max()):.3e} ({tol}); ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} library_ms {_time_ms(library):.4f} bound_ms "
-              f"{bound:.4f} ({by})", flush=True)
+              f"{bound:.4f} ({by}){alone}", flush=True)
+
+
+def flagship_config(name, save_folder, sample_rate=16000):
+    """The flagship width (the defaults, spelled out: vgg_cnn, 2 enc / 4
+    dec, d_model 512, 8 heads, d_k = d_v = 64, d_inner 512, d_emb 512, r
+    100, bf16) at ``sample_rate``, finalized."""
+    from mtl_tpu_torch.config import Config
+
+    cfg = Config()
+    m = cfg.model
+    m.feat_extractor, m.num_enc_layers, m.num_dec_layers = "vgg_cnn", 2, 4
+    m.num_heads, m.dim_model, m.dim_key, m.dim_value = 8, 512, 64, 64
+    m.dim_inner, m.dim_emb, m.r, m.dtype = 512, 512, 100, "bfloat16"
+    cfg.audio.sample_rate = sample_rate
+    cfg.name, cfg.save_folder = name, save_folder
+    cfg.finalize()
+    return cfg
 
 
 def serve(torch, dev, corpus_dir, models_dir):
@@ -537,7 +701,6 @@ def serve(torch, dev, corpus_dir, models_dir):
     Returns (test_main's result, its stdout, wall seconds, seconds of audio
     served, launch counts, checkpoint path)."""
     from mtl_tpu_torch.cli.asr import test_main
-    from mtl_tpu_torch.config import Config
     from mtl_tpu_torch.data.audio import load_audio
     from mtl_tpu_torch.data.dataset import read_manifest
     from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
@@ -554,13 +717,7 @@ def serve(torch, dev, corpus_dir, models_dir):
     audio_s = sum(len(load_audio(wav)) for wav, _ in read_manifest(
         manifests[0])) / 16000.0
 
-    cfg = Config()  # flagship width: the defaults, spelled out
-    m = cfg.model
-    m.feat_extractor, m.num_enc_layers, m.num_dec_layers = "vgg_cnn", 2, 4
-    m.num_heads, m.dim_model, m.dim_key, m.dim_value = 8, 512, 64, 64
-    m.dim_inner, m.dim_emb, m.r, m.dtype = 512, 512, 100, "bfloat16"
-    cfg.name, cfg.save_folder = "chip_smoke", models_dir
-    cfg.finalize()
+    cfg = flagship_config("chip_smoke", models_dir)
     model = build_model(cfg, len(vocab))
     init_weights(model, torch.Generator().manual_seed(SEED))
     ckpt = save_checkpoint(cfg, vocab, model.state_dict(), step=0,
@@ -631,6 +788,95 @@ def check_against_plain(torch, dev, ckpt, corpus_dir):
               flush=True)
         # f32 on both sides, TF32 off: summation order only
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    return counts
+
+
+def serve_22k(torch, dev, work):
+    """Phase 6b: the direct STFT route on a served path. A corpus of 8
+    synthetic utterances of 4-7.9 s at 22.05 kHz (n_fft 441, hop 220, 221
+    bins); a seeded checkpoint at the flagship width at that rate (vgg_cnn
+    sees 221 bins: dim_input (221 // 4) * 128); ``test_main`` on cuda, the
+    counters zeroed before and read after: the direct STFT once a batch,
+    the FFT STFT never, both bf16 VGG kernels once a batch. Then one batch's
+    front-end on the card against the CPU's plain version (the raw
+    log-magnitudes and the normalized features, rtol = atol = 1e-4). Phase
+    3c holds both VGG blocks' routes at this path's widths (221 bins into
+    block 1, 110 into block 2). Returns the served run's launch counts."""
+    from mtl_tpu_torch.cli.asr import test_main
+    from mtl_tpu_torch.data.dataset import SpectrogramDataset
+    from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+    from mtl_tpu_torch.data.vocab import Vocab
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.ops.frontend import log_spectrogram
+    from mtl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    manifests, labels_path = make_synthetic_corpus(
+        os.path.join(work, "corpus_22k"), num_tasks=1, utts_per_task=8,
+        sample_rate=SR_22K, min_sec=4.0, max_sec=7.9, seed=SEED + 22)
+    with open(labels_path, encoding="utf-8") as f:
+        vocab = Vocab.from_labels(json.load(f))
+    cfg = flagship_config("chip_smoke_22k", os.path.join(work, "models"),
+                          SR_22K)
+    a, m = cfg.audio, cfg.model
+    check((a.n_fft, a.hop_length, a.num_freq, m.dim_input)
+          == (N_FFT_22K, HOP_22K, BINS_22K, (BINS_22K // 4) * 128),
+          f"22.05 kHz config: {a.n_fft} {a.hop_length} {a.num_freq} "
+          f"{m.dim_input}")
+    model = build_model(cfg, len(vocab))
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    ckpt = save_checkpoint(cfg, vocab, model.state_dict(), step=0,
+                           best_model=True)
+    argv = ["--test-manifest-list", manifests[0], "--labels-path",
+            labels_path, "--continue-from", ckpt, "--name", "chip_smoke_22k",
+            "--device", dev.type, "--k-valid", "8", "--k-test", "8"]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = test_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = dict(native.launch_counts)
+    out = buf.getvalue()
+    with open(os.path.join(work, "test_main_22k.txt"), "w",
+              encoding="utf-8") as f:
+        f.write(out)
+    total = [ln for ln in out.splitlines() if ln.startswith("TOTAL CER")]
+    preds = [ln for ln in out.splitlines() if ln.startswith("PRED:")]
+    check(len(total) == 1 and len(preds) == 8 and result["utterances"] == 8
+          and all(math.isfinite(result[k])
+                  for k in ("cer", "wer", "en_cer", "zh_cer")),
+          f"22.05 kHz run: {len(preds)} PRED lines, {len(total)} TOTAL lines")
+    print(total[0], flush=True)
+    print(f"22.05 kHz: served 8 utterances in {wall:.3f} s "
+          f"({8 / wall:.3f} utterances/s); launches {counts}", flush=True)
+    check(counts["stft_logmag_direct"] == 1 and counts["stft_logmag"] == 0
+          and counts["vgg_block1"] == counts["vgg_block2"] == 1,
+          f"the 22.05 kHz run must launch the direct STFT once a batch, the "
+          f"FFT STFT never and each bf16 VGG kernel once a batch: {counts}")
+
+    # one batch's front-end: kernel (card) against plain version (CPU)
+    ds = SpectrogramDataset(vocab, cfg, manifests)
+    batch = next(ds.iter_batches(8, shuffle=False))
+    fronts = []
+    for d in (dev, torch.device("cpu")):
+        audio = torch.from_numpy(batch["audio"]).to(d)
+        alen = torch.from_numpy(batch["audio_lengths"]).to(d)
+        fronts.append([log_spectrogram(audio, alen, a.n_fft, a.hop_length,
+                                       normalize=norm, prepadded=True)[0]
+                       for norm in (False, True)])
+    for what, card, cpu in zip(("log-magnitudes", "normalized features"),
+                               *fronts):
+        card = card.cpu()
+        check(bool(torch.isfinite(card).all()), f"22.05 kHz {what}")
+        print(f"22.05 kHz {what} {tuple(card.shape)}: card vs cpu "
+              f"max_abs_err {float((card - cpu).abs().max()):.3e}",
+              flush=True)
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
+    print(f"22.05 kHz phase {time.perf_counter() - t0:.1f} s", flush=True)
     return counts
 
 
@@ -3010,10 +3256,11 @@ def main():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions; 3b. the VGG blocks at the
-    # log-fbank width
+    # 3. kernels against their plain versions; the VGG blocks at the
+    # widths of other paths: 3b. log-fbank, 3c. 22.05 kHz
     records = check_kernels(torch, dev)
-    check_kernels_fbank(torch, dev)
+    check_kernels_width(torch, dev, FBANK_BINS, SEED + 7)
+    check_kernels_width(torch, dev, BINS_22K, SEED + 22)
 
     # 4-6. serve the flagship checkpoint
     corpus_dir = os.path.join(WORK, "corpus")
@@ -3043,6 +3290,9 @@ def main():
     # 7. the served path against the plain versions, at f32
     parity = check_against_plain(torch, dev, ckpt, corpus_dir)
     print(f"launches in the f32 parity run: {parity}", flush=True)
+
+    # 6b. 22.05 kHz served through the direct STFT route
+    counts_22k = serve_22k(torch, dev, WORK)
 
     # 8. beam serving with LM fusion at the flagship width
     t0 = time.perf_counter()
@@ -3152,9 +3402,9 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # each kernel route must have run on its path: the bf16 tensor-core VGG
-    # kernels and the STFT on the served path, the f32 VGG kernels on the
-    # f32 parity path
-    by_path = {"serve": counts, "parity": parity}
+    # kernels and the FFT STFT on the served path, the f32 VGG kernels on
+    # the f32 parity path, the direct STFT on the 22.05 kHz served path
+    by_path = {"serve": counts, "parity": parity, "serve22k": counts_22k}
     for r in records:
         r["launches"] = by_path[r.pop("_path")].get(r["name"], 0)
         del r["_bound_note"]

@@ -67,7 +67,8 @@ def compile_all(sources: dict, work: str) -> dict:
             f.write(text)
         so = os.path.join(work, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
-            [native._nvcc(), *native.NVCC_FLAGS, "-o", so, cu],
+            [native._nvcc(), *native.NVCC_FLAGS, "-I", native.CSRC_DIR,
+             "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (so, proc) in procs.items():
@@ -81,8 +82,8 @@ def compile_all(sources: dict, work: str) -> dict:
     return built
 
 
-def kernel_ms(fn, iters: int = 50) -> float:
-    """Mean device time of the FFT kernel per call of ``fn``."""
+def kernel_ms(fn, iters: int = 50, kernel: str = "stft_fft_kernel") -> float:
+    """Mean device time of the named kernel per call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -93,7 +94,7 @@ def kernel_ms(fn, iters: int = 50) -> float:
         torch.cuda.synchronize()
     times = [e.device_time for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and "stft_fft_kernel" in e.name]
+             and kernel in e.name]
     if len(times) != iters:
         raise RuntimeError(f"profiler saw {len(times)} of {iters} launches")
     return sum(times) / iters / 1e3

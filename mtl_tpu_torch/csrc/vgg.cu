@@ -1,21 +1,19 @@
-// Fused VGG block in f32: SAME conv3x3 + bias + ReLU -> SAME conv3x3 + bias
-// + ReLU -> 2x2 VALID floor max-pool, one kernel per block.
+// Fused VGG block 1 in f32: SAME conv3x3 + bias + ReLU -> SAME conv3x3 +
+// bias + ReLU -> 2x2 VALID floor max-pool, one kernel.
 //
-// Replaces the Pallas TPU kernels mtl_tpu/ops/vgg_pallas.py:vgg_block1_fused
-// (body _b1_kernel, C_in = 1) and vgg_block2_fused (body _b2_kernel,
-// C_in > 1) on the f32 route: the card's f32 parity path. The bf16 route,
-// the model's compute dtype, is csrc/vgg_tc.cu on tensor cores. As on the
-// TPU, the conv-1 activation never goes to device memory: it lives in
-// shared memory, in f32.
+// Replaces the Pallas TPU kernel mtl_tpu/ops/vgg_pallas.py:vgg_block1_fused
+// (body _b1_kernel, C_in = 1) on the f32 route: the card's f32 parity path.
+// (Block 2's f32 route is csrc/vgg_f32_tc.cu on 3xTF32 tensor cores; the
+// bf16 route of both blocks, the model's compute dtype, is csrc/vgg_tc.cu.)
+// As on the TPU, the conv-1 activation never goes to device memory: it
+// lives in shared memory, in f32.
 //
-// Layouts: x f32 [B, T, F, C_in] (C_in = 1 may be [B, T, F]); weights flax
-// HWIO [3(f), 3(t), C_in, C] with H = freq and W = time; out f32
-// [B, T/2, F/2, C].
+// Layouts: x f32 [B, T, F]; weights flax HWIO [3(f), 3(t), 1, C] with H =
+// freq and W = time; out f32 [B, T/2, F/2, C].
 //
-// Work at the flagship serving shapes (B=8, T=800, F=161): block 1 7.7e10
-// flop, block 2 1.13e11 flop against ~86 MB of activations, so both are
-// compute-bound. This design runs f32 FMAs on the CUDA cores (bound 67
-// TFLOP/s).
+// Work at the flagship serving shapes (B=8, T=800, F=161): 7.7e10 flop
+// against ~70 MB of input and output, so it is compute-bound. This design runs
+// f32 FMAs on the CUDA cores (bound 67 TFLOP/s).
 //
 // Design (what does not carry over from the TPU): a block has at most 227 KB
 // of shared memory, so the grid tiles BOTH time and freq. A block owns PT x PF
@@ -26,8 +24,7 @@
 // pools there. The TPU's roll/selection-einsum tricks become direct indexing.
 // Lane l of a warp owns channels JC*l .. JC*l+JC-1 (vector weight loads);
 // a warp owns NP output positions, whose inputs are broadcast from shared
-// memory. Weights are too large for shared memory next to the tiles
-// (9*64*128 + 9*128*128 f32 for block 2), so they stream from L2/L1.
+// memory. Conv 2's weights (9*64*64 f32) stream from L2/L1.
 
 #include <cuda_runtime.h>
 
@@ -229,18 +226,5 @@ extern "C" int vgg_block1_fwd(const float* x, const float* w1, const float* b1,
     return launch<1, 64, 8, 8, 16>(x, w1, b1, w2, b2, out, B, T, F, s);
   if (c == 32)
     return launch<1, 32, 8, 8, 16>(x, w1, b1, w2, b2, out, B, T, F, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Block 2 (C_in > 1): x f32 [B, T, F, C_in]; out f32 [B, T/2, F/2, C].
-extern "C" int vgg_block2_fwd(const float* x, const float* w1, const float* b1,
-                              const float* w2, const float* b2, float* out,
-                              int B, int T, int F, int cin, int c,
-                              void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cin == 64 && c == 128)
-    return launch<64, 128, 4, 4, 8>(x, w1, b1, w2, b2, out, B, T, F, s);
-  if (cin == 32 && c == 64)
-    return launch<32, 64, 4, 4, 8>(x, w1, b1, w2, b2, out, B, T, F, s);
   return (int)cudaErrorInvalidValue;
 }

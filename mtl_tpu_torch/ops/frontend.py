@@ -41,6 +41,22 @@ def _reflect_pad(audio: torch.Tensor, n_fft: int) -> torch.Tensor:
     return F.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
 
 
+def frame_tail(audio: torch.Tensor, n_fft: int, hop: int,
+               n_frames: int) -> torch.Tensor:
+    """The prepadded [B, S] waveforms extended so that the last of
+    ``n_frames`` frames reads what the JAX package's framing gives it. At an
+    odd n_fft that frame runs one sample past the row's end; where hop does
+    not divide n_fft, JAX frames by a gather, which clamps the index (the
+    row's last sample again; mtl_tpu/ops/frontend.py:124-125), and the STFT
+    kernels read zeros past the end: so the last sample is repeated here.
+    Where hop divides n_fft JAX pads zeros, as the kernels do."""
+    need = (n_frames - 1) * hop + n_fft
+    if n_fft % hop == 0 or need <= audio.shape[1]:
+        return audio
+    tail = audio[:, -1:].expand(-1, need - audio.shape[1])
+    return torch.cat([audio, tail], dim=1)
+
+
 def frame_signal(audio: torch.Tensor, n_fft: int, hop: int,
                  prepadded: bool = False) -> torch.Tensor:
     """[B, S] -> [B, T, n_fft] frames with center reflect padding,
@@ -52,7 +68,9 @@ def frame_signal(audio: torch.Tensor, n_fft: int, hop: int,
     else:
         s = audio.shape[1]
         audio = _reflect_pad(audio, n_fft)
-    return frames_from_prepadded(audio, n_fft, hop, 1 + s // hop)
+    t = 1 + s // hop
+    return frames_from_prepadded(frame_tail(audio, n_fft, hop, t), n_fft,
+                                 hop, t)
 
 
 def log_spectrogram(
@@ -72,7 +90,8 @@ def log_spectrogram(
     if not prepadded:
         audio = _reflect_pad(audio, n_fft)
     t = 1 + s // hop
-    spect = stft_logmag(audio.float().contiguous(), n_fft, hop, t, window)
+    audio = frame_tail(audio.float(), n_fft, hop, t)
+    spect = stft_logmag(audio.contiguous(), n_fft, hop, t, window)
 
     frame_lengths = torch.clamp(num_frames(audio_lengths, n_fft, hop), max=t)
     if normalize:

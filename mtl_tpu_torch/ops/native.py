@@ -34,29 +34,30 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# library name -> source file under csrc/
-SOURCES = {"stft": "stft.cu", "stft_fft": "stft_fft.cu", "vgg": "vgg.cu",
-           "vgg_tc": "vgg_tc.cu"}
+# library name -> source file under csrc/ (each may include csrc/*.cuh)
+SOURCES = {"stft_dft_tc": "stft_dft_tc.cu", "stft_fft": "stft_fft.cu",
+           "vgg": "vgg.cu", "vgg_tc": "vgg_tc.cu",
+           "vgg_f32_tc": "vgg_f32_tc.cu"}
 
 # C entry -> argtypes (every entry returns cudaError_t as int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
-    "stft": {"stft_logmag_f32": [_P] * 4 + [_I] * 6 + [_P]},
+    "stft_dft_tc": {"stft_dft_tc_f32": [_P] * 3 + [_I] * 8 + [_P],
+                    "tf32_split_f32": [_P] * 4 + [_I, _P]},
     "stft_fft": {"stft_fft_f32": [_P] * 4 + [_I] * 7 + [_P]},
-    "vgg": {
-        "vgg_block1_fwd": [_P] * 6 + [_I] * 4 + [_P],
-        "vgg_block2_fwd": [_P] * 6 + [_I] * 5 + [_P],
-    },
+    "vgg": {"vgg_block1_fwd": [_P] * 6 + [_I] * 4 + [_P]},
     "vgg_tc": {
         "vgg_block1_tc": [_P] * 6 + [_I] * 4 + [_P],
         "vgg_block2_tc": [_P] * 5 + [_I] * 5 + [_P],
     },
+    "vgg_f32_tc": {"vgg_block2_f32tc": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
 # the STFT has two routes chosen by n_fft: the FFT (stft_fft.cu) and the
-# direct DFT (stft.cu, counted as stft_logmag_direct); the VGG blocks two
-# chosen by dtype: bf16 tensor cores (vgg_tc.cu) and f32 CUDA cores
-# (vgg.cu, counted as *_f32)
+# direct DFT (stft_dft_tc.cu, counted as stft_logmag_direct); the VGG blocks
+# two chosen by dtype: bf16 tensor cores (vgg_tc.cu) and f32 (counted as
+# *_f32: block 1 on the CUDA cores, vgg.cu; block 2 on 3xTF32 tensor
+# cores, vgg_f32_tc.cu)
 launch_counts: Dict[str, int] = {"stft_logmag": 0, "stft_logmag_direct": 0,
                                  "vgg_block1": 0, "vgg_block2": 0,
                                  "vgg_block1_f32": 0, "vgg_block2_f32": 0,
@@ -81,8 +82,13 @@ def _nvcc() -> str:
 
 
 def so_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers
+    beside it and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -102,7 +108,7 @@ def build(names: Optional[Iterable[str]] = None
         tmp = f"{out}.{os.getpid()}.tmp"
         log = open(f"{tmp}.log", "w+")  # a file: a pipe could fill and block
         procs[name] = (out, tmp, log, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+            [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
              os.path.join(CSRC_DIR, SOURCES[name])],
             stdout=log, stderr=subprocess.STDOUT))
     seconds = {}

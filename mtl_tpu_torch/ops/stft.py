@@ -11,9 +11,11 @@ two routes, chosen by ``n_fft`` alone (``stft_route``):
   (160, 320, 400, 480, 512, ...): ``csrc/stft_fft.cu``, a real FFT in
   shared memory and registers, one warp a frame, on the radices of
   ``fft_plan``; bound by bytes. Counted as ``stft_logmag``.
-* ``"direct"`` -- any other n_fft: ``csrc/stft.cu``, the DFT as an f32 GEMM
-  against the windowed bases, bound by the f32 FMA rate. Counted as
-  ``stft_logmag_direct``.
+* ``"direct"`` -- any other n_fft (441 at 22.05 kHz, 882, 220, ...):
+  ``csrc/stft_dft_tc.cu``, the DFT as one GEMM against the interleaved
+  windowed bases on TF32 tensor cores at f32 accuracy (3xTF32, three
+  passes of split operands; ``ops/tf32.py``), bound by the TF32 rate.
+  Counted as ``stft_logmag_direct``.
 
 A route that cannot launch raises; it never hands the work to the other
 route or to the plain version. On a CPU tensor both run
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import native
+from .tf32 import pack_tf32x3
 
 
 def _cosine_window(n: int, coefs) -> np.ndarray:
@@ -81,6 +84,47 @@ def device_dft_matrices(n_fft: int, window: str, device: torch.device
     launches the STFT. Read-only: callers must not write to them."""
     return tuple(torch.from_numpy(m).to(device)
                  for m in dft_matrices(n_fft, window))
+
+
+# -- the direct route -------------------------------------------------------
+
+# csrc/stft_dft_tc.cu's tile: GEMM columns (re, im of 56 bins) a CTA, and
+# samples a chunk of its K loop
+DFT_TC_TN, DFT_TC_KC = 112, 16
+
+
+def dft_tc_shape(n_fft: int) -> Tuple[int, int]:
+    """(N, K) of the direct route's GEMM as packed: 2F columns (re, im of
+    each bin) padded to a multiple of the CTA's 112, n_fft samples padded
+    to a multiple of its 16-sample chunk."""
+    n = -(-2 * (n_fft // 2 + 1) // DFT_TC_TN) * DFT_TC_TN
+    return n, -(-n_fft // DFT_TC_KC) * DFT_TC_KC
+
+
+def pack_dft_tc(n_fft: int, window: str = "hamming") -> torch.Tensor:
+    """The direct kernel's B operand, f32 [N/112 tiles, K/16 chunks, 2 (hi,
+    lo), 14, 4, 8, 4]: the windowed bases as an [n][k] matrix, column 2k =
+    cos_k and 2k + 1 = -sin_k of ``dft_matrices``, zeros in the padding,
+    split and in core matrices (``ops/tf32.py:pack_tf32x3``), in the order
+    a CTA's stages take them: one contiguous block a (tile, chunk)."""
+    cos_b, nsin_b = dft_matrices(n_fft, window)
+    f = n_fft // 2 + 1
+    n_pad, k_pad = dft_tc_shape(n_fft)
+    m = np.zeros((n_pad, k_pad), dtype=np.float32)
+    m[0:2 * f:2, :n_fft] = cos_b.T
+    m[1:2 * f:2, :n_fft] = nsin_b.T
+    tiles, chunks = n_pad // DFT_TC_TN, k_pad // DFT_TC_KC
+    return pack_tf32x3(torch.from_numpy(m)).view(
+        2, tiles, DFT_TC_TN // 8, chunks, DFT_TC_KC // 4, 8, 4).permute(
+            1, 3, 0, 2, 4, 5, 6).contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def device_dft_tc_operands(n_fft: int, window: str, device: torch.device
+                           ) -> torch.Tensor:
+    """``pack_dft_tc`` on ``device``, made once per (n_fft, window,
+    device), so a served batch only launches the STFT. Read-only."""
+    return pack_dft_tc(n_fft, window).to(device)
 
 
 # -- the FFT route ---------------------------------------------------------
@@ -216,8 +260,8 @@ def stft_logmag(audio: torch.Tensor, n_fft: int, hop: int, n_frames: int,
     if stft_route(n_fft) == "fft":
         win, tw = device_fft_tables(n_fft, window, audio.device)
         return stft_logmag_fft(audio, win, tw, n_frames, hop)
-    cos_b, nsin_b = device_dft_matrices(n_fft, window, audio.device)
-    return stft_logmag_direct(audio, cos_b, nsin_b, n_frames, hop)
+    packed = device_dft_tc_operands(n_fft, window, audio.device)
+    return stft_logmag_direct(audio, packed, n_fft, n_frames, hop)
 
 
 def stft_logmag_fft(audio: torch.Tensor, window: torch.Tensor,
@@ -241,21 +285,25 @@ def stft_logmag_fft(audio: torch.Tensor, window: torch.Tensor,
     return out
 
 
-def stft_logmag_direct(audio: torch.Tensor, cos_b: torch.Tensor,
-                       nsin_b: torch.Tensor, n_frames: int,
-                       hop: int) -> torch.Tensor:
-    """The direct route on CUDA tensors (``csrc/stft.cu``), which takes any
-    n_fft: the windowed bases [n_fft, F]."""
-    native.require_cuda(audio, cos_b, nsin_b)
-    if cos_b.dim() != 2 or cos_b.shape != nsin_b.shape:
-        raise ValueError(f"bases {tuple(cos_b.shape)} / "
-                         f"{tuple(nsin_b.shape)}")
+def stft_logmag_direct(audio: torch.Tensor, packed: torch.Tensor,
+                       n_fft: int, n_frames: int, hop: int) -> torch.Tensor:
+    """The direct route on CUDA tensors (``csrc/stft_dft_tc.cu``), which
+    takes any n_fft: ``packed`` is its B operand, ``pack_dft_tc(n_fft)``
+    (``device_dft_tc_operands``)."""
+    native.require_cuda(audio, packed)
+    f = n_fft // 2 + 1
+    tiles, chunks = packed.shape[:2] if packed.dim() == 7 else (0, 0)
+    if (packed.dtype != torch.float32
+            or packed.shape != (tiles, chunks, 2, DFT_TC_TN // 8,
+                                DFT_TC_KC // 4, 8, 4)
+            or DFT_TC_TN * tiles < 2 * f or DFT_TC_KC * chunks < n_fft):
+        raise ValueError(f"packed basis {packed.dtype} "
+                         f"{tuple(packed.shape)} for n_fft {n_fft}")
     b, s = audio.shape
-    n_fft, f = cos_b.shape
     out = torch.empty((b, n_frames, f), dtype=torch.float32,
                       device=audio.device)
     if out.numel():
-        native.launch("stft", "stft_logmag_f32", "stft_logmag_direct",
-                      audio.data_ptr(), cos_b.data_ptr(), nsin_b.data_ptr(),
-                      out.data_ptr(), b, s, n_frames, n_fft, hop, f)
+        native.launch("stft_dft_tc", "stft_dft_tc_f32", "stft_logmag_direct",
+                      audio.data_ptr(), packed.data_ptr(), out.data_ptr(), b,
+                      s, n_frames, n_fft, hop, f, tiles, chunks)
     return out

@@ -14,8 +14,11 @@ and has two routes on CUDA tensors, chosen by ``out_dtype`` alone:
   ReLU apply in f32, and the output is rounded to bf16 once: the function
   the JAX package's bf16 path computes on the TPU's MXU. Counted as
   ``vgg_block1`` / ``vgg_block2``.
-* ``torch.float32``: ``csrc/vgg.cu``, f32 FMAs on the CUDA cores, the card's
-  f32 parity route. Counted as ``vgg_block1_f32`` / ``vgg_block2_f32``.
+* ``torch.float32``, the card's f32 parity route: block 1 in
+  ``csrc/vgg.cu``, f32 FMAs on the CUDA cores; block 2 in
+  ``csrc/vgg_f32_tc.cu``, both convs as implicit GEMMs on TF32 tensor cores
+  at f32 accuracy (3xTF32: three passes of split operands, ``ops/tf32.py``).
+  Counted as ``vgg_block1_f32`` / ``vgg_block2_f32``.
 
 A route that cannot launch raises; it never hands the work to the other
 route or to the plain version. On CPU tensors both run ``vgg_block_plain``,
@@ -47,12 +50,15 @@ import torch.nn.functional as F
 
 from ..utils.precision import strict_f32
 from . import native
+from .tf32 import core_matrices_tf32
 
 # (C_in, C) pairs the kernels are built for: vgg_cnn and large_cnn
 BLOCK1_C = (64, 32)
 BLOCK2_C = ((64, 128), (32, 64))
 # conv-2 weight slices of the block-2 tensor-core kernel are 64 k wide
 _KC = 64
+# every weight slice of the f32 block-2 kernel is 16 k wide
+_KC_F32 = 16
 
 
 def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
@@ -138,6 +144,23 @@ def pack_block2_tc(w1, w2):
     return wp
 
 
+def pack_block2_f32tc(w1, w2):
+    """The f32 block-2 kernel's weight stream, f32 [NS, C/8, 4, 8, 4]: one
+    slice per (tap, 16-channel k chunk) in the order the kernel uses them,
+    conv 1's 9 * C_in/16 then conv 2's 9 * C/16, each the [n = C][k = 16]
+    matrix of that tap and chunk in tf32 core matrices
+    (``ops/tf32.py:core_matrices_tf32``), unsplit: the kernel splits each
+    slice into hi and lo on its way into shared memory, which halves the
+    bytes it streams."""
+
+    def slices(w):
+        k, n = w.shape[2], w.shape[3]
+        m = _taps_nk(w).reshape(9, n, k // _KC_F32, _KC_F32).transpose(1, 2)
+        return m.reshape(9 * (k // _KC_F32), n, _KC_F32)
+
+    return core_matrices_tf32(torch.cat([slices(w1), slices(w2)]))
+
+
 def _check(x, w1, b1, w2, b2, c_in, out_dtype):
     c = w1.shape[-1]
     if (tuple(w1.shape) != (3, 3, c_in, c) or tuple(w2.shape) != (3, 3, c, c)
@@ -211,10 +234,10 @@ def vgg_block2(x, w1, b1, w2, b2, out_dtype=torch.bfloat16):
                       wp.data_ptr(), b1.data_ptr(), b2.data_ptr(),
                       out.data_ptr(), b, t, f, c_in, c)
     else:
-        native.launch("vgg", "vgg_block2_fwd", "vgg_block2_f32",
-                      x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, t, f,
-                      c_in, c)
+        wp = pack_block2_f32tc(w1, w2)
+        native.launch("vgg_f32_tc", "vgg_block2_f32tc", "vgg_block2_f32",
+                      x.data_ptr(), wp.data_ptr(), b1.data_ptr(),
+                      b2.data_ptr(), out.data_ptr(), b, t, f, c_in, c)
     return out
 
 

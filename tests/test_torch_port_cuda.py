@@ -12,8 +12,12 @@ a ``tests`` package of its own.)
 Shapes cover ragged time and freq tiles (odd T and F, T not a multiple of
 16), both channel configurations (vgg_cnn 64/128, large_cnn 32/64), the
 flagship shapes, both routes of the STFT, which n_fft chooses (every FFT
-radix, an odd FFT half, T = 1, a waveform short of its last frame), and
-both routes of the VGG blocks, which ``out_dtype`` chooses, the VGG
+radix, an odd FFT half, T = 1, a waveform short of its last frame; the
+direct route at n_fft 441, 882, 220 and 446, hops that break 16-byte
+alignment, a waveform that starts off 16 bytes, ragged row and bin
+tiles), and both routes of the VGG blocks,
+which ``out_dtype`` chooses (the f32 block 2 at 161, 80 and 221 bins), a
+3xTF32 library refused or a launch that fails raising with no fallback, the VGG
 stack's autograd Function on both routes, one flagship-width meta step
 with its launch counts, the beam's bank and the LM scorer (TF32 allowed
 globally) against the CPU, the beam ``test_main``'s launches, an LM
@@ -23,7 +27,8 @@ loop against the cuDNN forward, one flagship-width joint step with its
 launch counts, and one f32 step each of MAML, the adversarial joint step,
 the multitask meta step and the epoch trainer's step (Noam Adam) against
 the CPU, both VGG routes at the log-fbank width (80 bins into block 1, 40
-into block 2), the device CER on CUDA tensors (equal integers), emb_cnn's
+into block 2) and at the 22.05 kHz width (221 into block 1, 110 into
+block 2), the device CER on CUDA tensors (equal integers), emb_cnn's
 convs and BatchNorm in training and evaluation mode (outputs and running
 statistics within 1e-4 relative) and the CTC loss with an infeasible row
 (value 1e-5 relative, gradients 1e-4 of the largest) against the CPU; the
@@ -37,8 +42,10 @@ largest), and the sequence-parallel encode over 2 ranks on the card
 against the unsharded encode.
 Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
-GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 route differs from
-the f32 plain version only in summation order (rtol/atol 1e-4). The bf16
+GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 routes differ from
+the f32 plain version in summation order (rtol/atol 1e-4). The direct STFT
+and the f32 block 2 run 3xTF32 (csrc/tf32x3.cuh): products to ~2^-22 and
+the tensor cores' f32 sums, inside the same 1e-4. The bf16
 tensor-core route and the bf16-operand plain version sum in f32 in other
 orders, so a conv-1 value or an output near a bf16 rounding boundary may
 round to its neighbour: one bf16 ulp of the output, |d| <= 2^-7 |plain| +
@@ -56,8 +63,9 @@ import torch
 
 from mtl_tpu_torch.ops import native
 from mtl_tpu_torch.ops.frontend import dft_matrices
-from mtl_tpu_torch.ops.stft import (stft_logmag, stft_logmag_direct,
-                                    stft_logmag_plain, stft_route)
+from mtl_tpu_torch.ops.stft import (device_dft_tc_operands, stft_logmag,
+                                    stft_logmag_direct, stft_logmag_plain,
+                                    stft_route)
 from mtl_tpu_torch.ops.vgg import vgg_block1, vgg_block2, vgg_block_plain
 
 pytestmark = pytest.mark.cuda
@@ -106,13 +114,20 @@ def _run_route(fn, x, ws, dtype, block):
 
 # (b, t, n_fft, hop, samples short of (t - 1) * hop + n_fft); the FFT
 # route's CTAs take 4 frames, so t = 37, 21, 33 and 50 leave a ragged last
-# CTA
+# CTA. The direct route (n_fft 448, 441, 882, 220, 446 = 2 * 223) takes 128
+# frame rows and 56 bins a CTA: b * t is no multiple of 128 below, 250 and
+# 448 leave a ragged last bin tile, and hops 441 and 110 (and odd S) take
+# its 4-byte frame copies.
 STFT_SHAPES = [(2, 37, 320, 160, 0), (3, 200, 320, 160, 0),
                (1, 50, 400, 160, 0), (8, 800, 320, 160, 0),
                (2, 33, 160, 80, 0), (3, 1, 320, 160, 0),
                (2, 21, 320, 160, 250), (1, 9, 480, 160, 0),
                (1, 7, 512, 160, 0), (1, 12, 250, 100, 0),
-               (1, 40, 448, 160, 0)]
+               (1, 40, 448, 160, 0), (8, 800, 441, 220, 0),
+               (2, 37, 441, 220, 0), (3, 50, 441, 441, 0),
+               (2, 21, 882, 441, 7), (2, 33, 220, 110, 0),
+               (1, 9, 446, 223, 0), (5, 77, 441, 220, 300)]
+DIRECT_N_FFT = (448, 441, 882, 220, 446)
 
 
 def _stft_inputs(dev, b, t, n_fft, hop, short):
@@ -133,7 +148,7 @@ def test_stft_kernel_matches_plain(dev, b, t, n_fft, hop, short):
     mine, other = (("stft_logmag", "stft_logmag_direct")
                    if stft_route(n_fft) == "fft"
                    else ("stft_logmag_direct", "stft_logmag"))
-    assert (mine == "stft_logmag") == (n_fft != 448)
+    assert (mine == "stft_logmag") == (n_fft not in DIRECT_N_FFT)
     before = dict(native.launch_counts)
     out = stft_logmag(audio, n_fft, hop, t, "hamming")
     torch.cuda.synchronize()
@@ -149,11 +164,48 @@ def test_stft_direct_route_matches_plain(dev, b, t, n_fft, hop, short):
     """The direct kernel takes every n_fft through its launcher."""
     audio, cos_b, nsin_b = _stft_inputs(dev, b, t, n_fft, hop, short)
     before = native.launch_counts["stft_logmag_direct"]
-    out = stft_logmag_direct(audio, cos_b, nsin_b, t, hop)
+    packed = device_dft_tc_operands(n_fft, "hamming", dev)
+    out = stft_logmag_direct(audio, packed, n_fft, t, hop)
     torch.cuda.synchronize()
     assert native.launch_counts["stft_logmag_direct"] == before + 1
     ref = stft_logmag_plain(audio, cos_b, nsin_b, t, hop)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_stft_direct_kernel_on_a_waveform_off_16_bytes(dev):
+    """A waveform view that starts 4 bytes past a 16-byte boundary: the
+    wrapper raises ValueError (no counter moves), and the kernel's own
+    entry, called on it, takes the 4-byte frame copies (n_fft 448 and hop
+    160 would take the 16-byte ones) and matches the plain version; the
+    card stays usable."""
+    b, t, n_fft, hop = 2, 37, 448, 160
+    s = (t - 1) * hop + n_fft
+    rng = np.random.RandomState(5)
+    base = torch.from_numpy(rng.uniform(-0.5, 0.5, b * s + 4).astype(
+        np.float32)).to(dev)
+    audio = base[1:1 + b * s].view(b, s)
+    assert audio.is_contiguous() and audio.data_ptr() % 16 == 4
+    packed = device_dft_tc_operands(n_fft, "hamming", dev)
+    before = dict(native.launch_counts)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stft_logmag_direct(audio, packed, n_fft, t, hop)
+    assert native.launch_counts == before
+    f = n_fft // 2 + 1
+    out = torch.full((b, t, f), float("nan"), device=dev)
+    rc = native.library("stft_dft_tc").stft_dft_tc_f32(
+        audio.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s, t, n_fft,
+        hop, f, packed.shape[0], packed.shape[1],
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    cos_b, nsin_b = (torch.from_numpy(m).to(dev)
+                     for m in dft_matrices(n_fft, "hamming"))
+    ref = stft_logmag_plain(audio, cos_b, nsin_b, t, hop)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    aligned = audio.clone()
+    torch.testing.assert_close(
+        stft_logmag_direct(aligned, packed, n_fft, t, hop), ref, rtol=1e-4,
+        atol=1e-4)
 
 
 def test_stft_fft_library_refused_raises(dev, monkeypatch):
@@ -172,6 +224,93 @@ def test_stft_fft_library_refused_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="stft_fft refused"):
         stft_logmag(audio, 320, 160, 5)
     assert native.launch_counts == before
+
+
+def test_device_tf32_split_is_cvt_rna_and_its_torch_mirror(dev):
+    """csrc/tf32x3.cuh's split on the card (tf32_split_f32): hi is what
+    cvt.rna.tf32.f32 gives (low 13 bits cleared) on every finite normal
+    value below the largest tf32, and (hi, lo) equal ops/tf32.py:
+    split_tf32 bit for bit on every value, subnormals, inf and nan too."""
+    from mtl_tpu_torch.ops.tf32 import split_tf32
+
+    rng = np.random.RandomState(11)
+    normal = rng.randn(20000) * 10.0 ** rng.uniform(-37, 37, 20000)
+    base = rng.randn(2000).astype(np.float32).view(np.int32) & ~0x1FFF
+    ties = np.concatenate([base | 0x1000, (base | 0x1000) + 1,
+                           (base | 0x1000) - 1]).view(np.float32)
+    sub = rng.randint(1, 1 << 23, 2000).astype(np.int32).view(np.float32)
+    x = np.concatenate([normal.astype(np.float32), ties, sub, -sub, np.array(
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38], np.float32)])
+    xt = torch.from_numpy(x).to(dev)
+    hi, lo, cvt = (torch.empty(x.size, dtype=torch.int32, device=dev)
+                   for _ in range(3))
+    rc = native.library("stft_dft_tc").tf32_split_f32(
+        xt.data_ptr(), hi.data_ptr(), lo.data_ptr(), cvt.data_ptr(), x.size,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want_hi, want_lo = (t.view(torch.int32) for t in split_tf32(
+        torch.from_numpy(x)))
+    hi, lo, cvt = hi.cpu(), lo.cpu(), cvt.cpu()
+    nan = torch.from_numpy(np.isnan(x))
+    assert torch.equal(hi[~nan], want_hi[~nan])
+    assert torch.equal(lo, want_lo)
+    mag = np.abs(x)
+    normal = torch.from_numpy((mag >= 2.0 ** -126) & (mag < 3.4e38))
+    assert torch.equal(cvt[normal], hi[normal])
+    subn = torch.from_numpy((mag > 0) & (mag < 2.0 ** -126))
+    print(f"cvt.rna vs the integer split on {int(subn.sum())} subnormals: "
+          f"{int((cvt[subn] != hi[subn]).sum())} differ")
+
+
+class _FailingLibrary:
+    """Every entry returns a CUDA error code, as a refused launch does."""
+
+    def __getattr__(self, entry):
+        return lambda *args: 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("lib", ["stft_dft_tc", "vgg_f32_tc"])
+@pytest.mark.parametrize("how", ["refused", "launch_fails"])
+def test_tf32_kernels_raise_without_fallback(dev, monkeypatch, lib, how):
+    """The 3xTF32 routes (the direct STFT at n_fft 441, the f32 block 2):
+    a library that cannot be had, or a launch that returns a CUDA error,
+    raises; no counter moves and neither the other route nor the plain
+    version runs instead."""
+    real = native.library
+
+    def library(name):
+        if name != lib:
+            return real(name)
+        if how == "refused":
+            raise RuntimeError(f"{name} refused")
+        return _FailingLibrary()
+
+    monkeypatch.setattr(native, "library", library)
+    if lib == "stft_dft_tc":
+        audio, _, _ = _stft_inputs(dev, 2, 9, 441, 220, 0)
+        call = lambda: stft_logmag(audio, 441, 220, 9)  # noqa: E731
+    else:
+        x, ws = _vgg_inputs(dev, (1, 16, 13, 64), 64, 128, torch.float32, 6)
+        call = lambda: vgg_block2(x, *ws, out_dtype=torch.float32)  # noqa
+    before = dict(native.launch_counts)
+    match = "refused" if how == "refused" else "CUDA error 1"
+    with pytest.raises(RuntimeError, match=match):
+        call()
+    assert native.launch_counts == before
+
+
+@pytest.mark.parametrize("f", [161, 80, 221])
+@pytest.mark.parametrize("cin,c", [(64, 128), (32, 64)])
+def test_vgg_block2_f32_tensor_core_tiles(dev, f, cin, c):
+    """The f32 block 2 (3xTF32, 8 x 16 conv-2 tiles) at 161, 80 and 221
+    bins with an odd T: ragged tiles in both axes, floored at the pool."""
+    x, ws = _vgg_inputs(dev, (2, 75, f, cin), cin, c, torch.float32, f + c)
+    x = x.relu()  # like block 1's output
+    out = _run_route(vgg_block2, x, ws, torch.float32, 2)
+    ref = vgg_block_plain(x, *ws, out_dtype=torch.float32)
+    assert out.shape == ref.shape == (2, 37, f // 2, c)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("t,f", [(16, 13), (37, 161), (100, 161)])
@@ -724,16 +863,14 @@ def test_maml_disc_epoch_f32_steps_on_the_card_match_the_cpu(dev, tmp_path,
 
 # -- the training-options and front-end slice ------------------------------
 
-@pytest.mark.parametrize("block", [1, 2])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_vgg_kernels_at_the_log_fbank_width(dev, block, dtype):
-    """--feat logfbank: block 1 at F = 80 (batch 8, 800 frames), block 2
-    at F = 40, both routes against their plain versions."""
+def _check_vgg_width(dev, block, dtype, bins):
+    """Block 1 at F = ``bins`` (batch 8, 800 frames), block 2 at bins // 2,
+    on the route ``dtype`` picks, against the plain version."""
     if block == 1:
-        x, ws = _vgg_inputs(dev, (8, 800, 80), 1, 64, dtype, 3)
+        x, ws = _vgg_inputs(dev, (8, 800, bins), 1, 64, dtype, 3)
         fn = vgg_block1
     else:
-        x, ws = _vgg_inputs(dev, (8, 400, 40, 64), 64, 128, dtype, 4)
+        x, ws = _vgg_inputs(dev, (8, 400, bins // 2, 64), 64, 128, dtype, 4)
         x = x.relu()
         fn = vgg_block2
     out = _run_route(fn, x, ws, dtype, block)
@@ -744,6 +881,22 @@ def test_vgg_kernels_at_the_log_fbank_width(dev, block, dtype):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     else:
         _close_bf16(out, ref)
+
+
+@pytest.mark.parametrize("block", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vgg_kernels_at_the_log_fbank_width(dev, block, dtype):
+    """--feat logfbank: block 1 at F = 80 (batch 8, 800 frames), block 2
+    at F = 40, both routes against their plain versions."""
+    _check_vgg_width(dev, block, dtype, 80)
+
+
+@pytest.mark.parametrize("block", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vgg_kernels_at_the_22k_width(dev, block, dtype):
+    """--sample-rate 22050: block 1 at F = 221 (odd F floors at the pool),
+    block 2 at F = 110, both routes against their plain versions."""
+    _check_vgg_width(dev, block, dtype, 221)
 
 
 def test_device_cer_on_cuda_tensors_equals_the_cpu(dev):

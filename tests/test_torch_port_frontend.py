@@ -68,40 +68,75 @@ def test_frame_signal_matches_jax(n_fft, hop, prepadded):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_stft_plain_matches_xla_twin():
+# (n_fft, hop) at the 20 ms / 10 ms windows of 16, 22.05, 44.1 and 11.025
+# kHz: the FFT route's n_fft and three of the direct route's (ops/stft.py:
+# stft_route), whose hops 220, 441 and 110 do not divide n_fft
+WINDOWS_AT = [(320, 160), (441, 220), (882, 441), (220, 110)]
+
+
+@pytest.mark.parametrize("n_fft,hop", WINDOWS_AT)
+def test_stft_plain_matches_xla_twin(n_fft, hop):
     """stft_logmag (plain version on the CPU) vs the XLA twin of the Pallas
     kernel on the same frames; f32 at HIGHEST on the JAX side."""
-    _, batch = _batch([4000, 2560])
+    _, batch = _batch([4000, 2560], n_fft=n_fft, hop=hop)
     audio = batch["audio"]
-    n_t = 1 + (audio.shape[1] - N_FFT) // HOP
-    cos_b, nsin_b = fe.dft_matrices(N_FFT, "hamming")
-    got = stft_logmag(torch.from_numpy(audio), N_FFT, HOP, n_t, "hamming")
-    frames = jfe.frame_signal(jnp.asarray(audio), N_FFT, HOP, prepadded=True)
+    cos_b, nsin_b = fe.dft_matrices(n_fft, "hamming")
+    frames = jfe.frame_signal(jnp.asarray(audio), n_fft, hop, prepadded=True)
+    # 1 + (unpadded samples) // hop frames: at an odd n_fft the last one
+    # runs past the row's end, where JAX's gather repeats the last sample
+    n_t = frames.shape[1]
+    got = stft_logmag(fe.frame_tail(torch.from_numpy(audio), n_fft, hop, n_t),
+                      n_fft, hop, n_t, "hamming")
     re = jnp.einsum("btn,nf->btf", frames, cos_b, precision="highest")
     im = jnp.einsum("btn,nf->btf", frames, nsin_b, precision="highest")
     want = np.asarray(jnp.log1p(jnp.sqrt(re * re + im * im)))
-    assert got.shape == want.shape == (2, n_t, N_FFT // 2 + 1)
+    assert got.shape == want.shape == (2, n_t, n_fft // 2 + 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_fft,hop", WINDOWS_AT)
 @pytest.mark.parametrize("normalize", [True, False])
-def test_log_spectrogram_matches_jax_on_ragged_batch(normalize):
+def test_log_spectrogram_matches_jax_on_ragged_batch(normalize, n_fft, hop):
     lengths = [4000, 2561, 160]
-    _, batch = _batch(lengths, bucket=40)
+    _, batch = _batch(lengths, bucket=40, n_fft=n_fft, hop=hop)
     audio, alen = batch["audio"], batch["audio_lengths"]
     feats, flen = fe.log_spectrogram(torch.from_numpy(audio),
-                                     torch.from_numpy(alen), N_FFT, HOP,
+                                     torch.from_numpy(alen), n_fft, hop,
                                      normalize=normalize, prepadded=True)
     jfeats, jflen = jfe.log_spectrogram(jnp.asarray(audio), jnp.asarray(alen),
-                                        N_FFT, HOP, normalize=normalize,
+                                        n_fft, hop, normalize=normalize,
                                         use_pallas=False, prepadded=True)
     np.testing.assert_array_equal(flen.numpy(), np.asarray(jflen))
-    assert feats.shape == jfeats.shape == (3, 40, 161)
+    assert feats.shape == jfeats.shape == (3, 40, n_fft // 2 + 1)
     np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=1e-4,
                                atol=1e-4)
     # padded frames are exact zeros after the normalize
     for i, n in enumerate(flen.tolist()):
         assert not feats[i, n:].any()
+
+
+@pytest.mark.parametrize("n_fft,hop", WINDOWS_AT)
+def test_log_spectrogram_matches_jax_when_a_row_fills_the_batch(n_fft, hop):
+    """The longest row ends at the batch's last column, hop dividing its
+    sample count: at an odd n_fft (441) the last frame runs one sample past
+    the row, which JAX's framing clamps (``frame_tail``)."""
+    rng = np.random.RandomState(n_fft)
+    s = 20 * hop
+    audio = rng.randn(2, s + 2 * (n_fft // 2)).astype(np.float32)
+    alen = np.array([s, s // 2], np.int32)
+    feats, flen = fe.log_spectrogram(torch.from_numpy(audio),
+                                     torch.from_numpy(alen), n_fft, hop,
+                                     prepadded=True)
+    jfeats, jflen = jfe.log_spectrogram(jnp.asarray(audio), jnp.asarray(alen),
+                                        n_fft, hop, use_pallas=False,
+                                        prepadded=True)
+    np.testing.assert_array_equal(flen.numpy(), np.asarray(jflen))
+    assert feats.shape == jfeats.shape == (2, 21, n_fft // 2 + 1)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=1e-4,
+                               atol=1e-4)
+    frames = fe.frame_signal(torch.from_numpy(audio), n_fft, hop, True)
+    np.testing.assert_array_equal(frames.numpy(), np.asarray(
+        jfe.frame_signal(jnp.asarray(audio), n_fft, hop, True)))
 
 
 def test_log_spectrogram_matches_oracle():

@@ -196,3 +196,21 @@ def run_encode_cases(mesh, cases: List[dict], device_name: str = "cpu"
                            if device.type == "cuda" else 0),
         })
     return results if mesh.is_root else None
+
+
+def epoch_train_failing_rank(mesh, args, failing_rank: int):
+    """``cli/asr.py:_epoch_train`` on this rank, where the joint step of
+    rank ``failing_rank`` raises before its first collective (the other
+    ranks then wait inside the step's collectives)."""
+    from mtl_tpu_torch.cli import asr
+    from mtl_tpu_torch.train import trainer
+
+    if mesh.rank == failing_rank:
+        def failing_step(*_args, **_kwargs):
+            def step(*_a, **_k):
+                raise RuntimeError(f"planted step failure on rank "
+                                   f"{failing_rank}")
+            return step
+
+        trainer.make_joint_step = failing_step
+    return asr._epoch_train(mesh, args)
