@@ -16,8 +16,9 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    in turns with it at n_fft 320 and with the cuFFT chain torch.stft ->
    abs -> log1p at its own 22.05 kHz shape, n_fft 441, hop 220, 221
    bins), and both routes of both VGG blocks (bf16 tensor cores against
-   the bf16-operand plain version; f32 -- block 1 on the CUDA cores, block
-   2 on 3xTF32 tensor cores -- against the f32 one). An f32 GEMM-form row
+   the bf16-operand plain version; f32, both on 3xTF32 tensor cores,
+   against the f32 one; block 1's f32 time alone and its share of the
+   bound at 161, 80 and 221 bins, here and in 3b, 3c). An f32 GEMM-form row
    (the direct STFT, both f32 VGG blocks) is bound by the larger of its
    bytes at 3.35 TB/s and its operations at the faster of f32 FMAs (67
    TFLOP/s) and 3xTF32 (three passes at 495);
@@ -592,8 +593,8 @@ FBANK_BINS = 80  # --feat logfbank: 80 mel bins into vgg_cnn
 BINS_22K = N_FFT_22K // 2 + 1  # 221 STFT bins into vgg_cnn at 22.05 kHz
 # the f32 VGG routes: source and kernel name; the max abs errors of their
 # former CUDA-core design (PERF.md)
-F32_ROUTES = {"vgg_block1_f32": ("mtl_tpu_torch/csrc/vgg.cu",
-                                 "vgg_block_kernel"),
+F32_ROUTES = {"vgg_block1_f32": ("mtl_tpu_torch/csrc/vgg_f32_tc.cu",
+                                 "vgg_block1_f32tc_kernel"),
               "vgg_block2_f32": ("mtl_tpu_torch/csrc/vgg_f32_tc.cu",
                                  "vgg_block2_f32tc_kernel")}
 FORMER_F32_ERR = {"vgg_block1_f32": "8.3e-7 at 161 bins, 8.9e-7 at 80",

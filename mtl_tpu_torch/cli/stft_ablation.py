@@ -58,7 +58,8 @@ def variants(src: str) -> dict:
 
 
 def compile_all(sources: dict, work: str) -> dict:
-    """{name: (library path, ptxas summary)}; raises if one fails."""
+    """{name: (library path, the compiler's output)}; raises if one
+    fails."""
     os.makedirs(work, exist_ok=True)
     procs = {}
     for name, text in sources.items():
@@ -75,11 +76,15 @@ def compile_all(sources: dict, work: str) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores", log)
-        built[name] = (so, f"registers {'/'.join(regs)} spill stores "
-                           f"{'/'.join(spills)}")
+        built[name] = (so, log)
     return built
+
+
+def ptxas_summary(log: str) -> str:
+    """Every kernel's registers and spill stores in a ``-Xptxas -v`` log."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores", log)
+    return f"registers {'/'.join(regs)} spill stores {'/'.join(spills)}"
 
 
 def kernel_ms(fn, iters: int = 50, kernel: str = "stft_fft_kernel") -> float:
@@ -129,7 +134,8 @@ def main(argv=None) -> int:
              for name in ("runtime_plan", "no_epilogue", "no_stages")]
     for rnd in range(args.rounds):
         for name, frames, plan in runs:
-            so, ptxas = built[name]
+            so, log = built[name]
+            ptxas = ptxas_summary(log)
             fn = getattr(ctypes.CDLL(so), "stft_fft_f32")
             fn.argtypes = native.ENTRIES["stft_fft"]["stft_fft_f32"]
             fn.restype = ctypes.c_int

@@ -1,6 +1,6 @@
 // 3xTF32 on Hopper's tensor cores: f32 GEMMs on wgmma at close to f32
 // accuracy. Shared by csrc/stft_dft_tc.cu (the direct STFT) and
-// csrc/vgg_f32_tc.cu (the f32 VGG block 2).
+// csrc/vgg_f32_tc.cu (the f32 VGG blocks 1 and 2).
 //
 // TF32 keeps 10 mantissa bits, about three decimal digits: one pass of an
 // f32 product through it misses the f32 routes' 1e-4 (log1p amplifies the

@@ -10,7 +10,8 @@
 // it lives in shared memory as bf16. Conv-1 positions outside the image are
 // ZERO (SAME padding of conv 2, the TPU kernel's _mask_e), not relu(b1).
 // Any T and F: the grid covers the floored pooled extent and masks the
-// ragged edge. (csrc/vgg.cu is the f32 CUDA-core route of the same blocks.)
+// ragged edge. (csrc/vgg_f32_tc.cu is the f32 route of the same blocks, on
+// 3xTF32 tensor cores.)
 //
 // Layouts: x [B, T, F] f32 (block 1) or [B, T, F, C_in] bf16 (block 2);
 // out [B, T/2, F/2, C] bf16. The wrapper (ops/vgg.py) packs the flax HWIO

@@ -36,8 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # library name -> source file under csrc/ (each may include csrc/*.cuh)
 SOURCES = {"stft_dft_tc": "stft_dft_tc.cu", "stft_fft": "stft_fft.cu",
-           "vgg": "vgg.cu", "vgg_tc": "vgg_tc.cu",
-           "vgg_f32_tc": "vgg_f32_tc.cu"}
+           "vgg_tc": "vgg_tc.cu", "vgg_f32_tc": "vgg_f32_tc.cu"}
 
 # C entry -> argtypes (every entry returns cudaError_t as int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -45,19 +44,20 @@ ENTRIES = {
     "stft_dft_tc": {"stft_dft_tc_f32": [_P] * 3 + [_I] * 8 + [_P],
                     "tf32_split_f32": [_P] * 4 + [_I, _P]},
     "stft_fft": {"stft_fft_f32": [_P] * 4 + [_I] * 7 + [_P]},
-    "vgg": {"vgg_block1_fwd": [_P] * 6 + [_I] * 4 + [_P]},
     "vgg_tc": {
         "vgg_block1_tc": [_P] * 6 + [_I] * 4 + [_P],
         "vgg_block2_tc": [_P] * 5 + [_I] * 5 + [_P],
     },
-    "vgg_f32_tc": {"vgg_block2_f32tc": [_P] * 5 + [_I] * 5 + [_P]},
+    "vgg_f32_tc": {
+        "vgg_block1_f32tc": [_P] * 6 + [_I] * 4 + [_P],
+        "vgg_block2_f32tc": [_P] * 5 + [_I] * 5 + [_P],
+    },
 }
 
 # the STFT has two routes chosen by n_fft: the FFT (stft_fft.cu) and the
 # direct DFT (stft_dft_tc.cu, counted as stft_logmag_direct); the VGG blocks
-# two chosen by dtype: bf16 tensor cores (vgg_tc.cu) and f32 (counted as
-# *_f32: block 1 on the CUDA cores, vgg.cu; block 2 on 3xTF32 tensor
-# cores, vgg_f32_tc.cu)
+# two chosen by dtype: bf16 tensor cores (vgg_tc.cu) and f32 on 3xTF32
+# tensor cores (vgg_f32_tc.cu, counted as *_f32)
 launch_counts: Dict[str, int] = {"stft_logmag": 0, "stft_logmag_direct": 0,
                                  "vgg_block1": 0, "vgg_block2": 0,
                                  "vgg_block1_f32": 0, "vgg_block2_f32": 0,

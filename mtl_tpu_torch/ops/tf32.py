@@ -7,9 +7,9 @@ into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``: the rounding of
 cleared. The kernels split their A operands in registers. Their B operands
 are packed here once in ``wgmma``'s K-major core matrices: the DFT basis
 of ``ops/stft.py`` split into hi and lo (``pack_tf32x3``), the VGG weights
-of ``ops/vgg.py`` as f32 (``core_matrices_tf32``), which the block-2
-kernel splits on their way into shared memory to halve the bytes it
-streams (PERF.md). ``split_tf32`` is the bit-exact mirror of the device's
+of ``ops/vgg.py`` as f32 (``core_matrices_tf32``), which the VGG kernels
+split on their way into shared memory to halve the bytes they stream
+(PERF.md). ``split_tf32`` is the bit-exact mirror of the device's
 ``split`` on the int32 view, on any device (the CPU tests emulate the
 kernels with it):
 hi + lo recovers a finite x to within 2^-22 relative; inf and nan pass

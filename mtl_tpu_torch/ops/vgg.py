@@ -14,11 +14,11 @@ and has two routes on CUDA tensors, chosen by ``out_dtype`` alone:
   ReLU apply in f32, and the output is rounded to bf16 once: the function
   the JAX package's bf16 path computes on the TPU's MXU. Counted as
   ``vgg_block1`` / ``vgg_block2``.
-* ``torch.float32``, the card's f32 parity route: block 1 in
-  ``csrc/vgg.cu``, f32 FMAs on the CUDA cores; block 2 in
-  ``csrc/vgg_f32_tc.cu``, both convs as implicit GEMMs on TF32 tensor cores
-  at f32 accuracy (3xTF32: three passes of split operands, ``ops/tf32.py``).
-  Counted as ``vgg_block1_f32`` / ``vgg_block2_f32``.
+* ``torch.float32``, the card's f32 parity route: both blocks in
+  ``csrc/vgg_f32_tc.cu``, conv 2 (and block 2's conv 1) as implicit GEMMs
+  on TF32 tensor cores at f32 accuracy (3xTF32: three passes of split
+  operands, ``ops/tf32.py``), block 1's conv 1 as exact f32 FMAs on the
+  CUDA cores. Counted as ``vgg_block1_f32`` / ``vgg_block2_f32``.
 
 A route that cannot launch raises; it never hands the work to the other
 route or to the plain version. On CPU tensors both run ``vgg_block_plain``,
@@ -57,7 +57,7 @@ BLOCK1_C = (64, 32)
 BLOCK2_C = ((64, 128), (32, 64))
 # conv-2 weight slices of the block-2 tensor-core kernel are 64 k wide
 _KC = 64
-# every weight slice of the f32 block-2 kernel is 16 k wide
+# every weight slice of the f32 kernels is 16 k wide
 _KC_F32 = 16
 
 
@@ -144,6 +144,21 @@ def pack_block2_tc(w1, w2):
     return wp
 
 
+def _slices_f32(w):
+    """HWIO [3(f), 3(t), K, N] -> [9 * K/16, N, 16]: one [n][k] matrix per
+    (tap, 16-channel k chunk), tap = dt * 3 + df, chunks inner."""
+    k, n = w.shape[2], w.shape[3]
+    m = _taps_nk(w).reshape(9, n, k // _KC_F32, _KC_F32).transpose(1, 2)
+    return m.reshape(9 * (k // _KC_F32), n, _KC_F32)
+
+
+def pack_block1_f32tc(w2):
+    """The f32 block-1 kernel's weight stream, f32 [9 * C/16, C/8, 4, 8,
+    4]: conv 2's slices as ``pack_block2_f32tc`` packs them (conv 1, K = 9,
+    runs on the CUDA cores from w1 as it is)."""
+    return core_matrices_tf32(_slices_f32(w2))
+
+
 def pack_block2_f32tc(w1, w2):
     """The f32 block-2 kernel's weight stream, f32 [NS, C/8, 4, 8, 4]: one
     slice per (tap, 16-channel k chunk) in the order the kernel uses them,
@@ -152,13 +167,7 @@ def pack_block2_f32tc(w1, w2):
     (``ops/tf32.py:core_matrices_tf32``), unsplit: the kernel splits each
     slice into hi and lo on its way into shared memory, which halves the
     bytes it streams."""
-
-    def slices(w):
-        k, n = w.shape[2], w.shape[3]
-        m = _taps_nk(w).reshape(9, n, k // _KC_F32, _KC_F32).transpose(1, 2)
-        return m.reshape(9 * (k // _KC_F32), n, _KC_F32)
-
-    return core_matrices_tf32(torch.cat([slices(w1), slices(w2)]))
+    return core_matrices_tf32(torch.cat([_slices_f32(w1), _slices_f32(w2)]))
 
 
 def _check(x, w1, b1, w2, b2, c_in, out_dtype):
@@ -204,9 +213,10 @@ def vgg_block1(x, w1, b1, w2, b2, out_dtype=torch.bfloat16):
                       w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
                       b2.data_ptr(), out.data_ptr(), b, t, f, c)
     else:
-        native.launch("vgg", "vgg_block1_fwd", "vgg_block1_f32",
+        wp = pack_block1_f32tc(w2)
+        native.launch("vgg_f32_tc", "vgg_block1_f32tc", "vgg_block1_f32",
                       x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), out.data_ptr(), b, t, f,
+                      wp.data_ptr(), b2.data_ptr(), out.data_ptr(), b, t, f,
                       c)
     return out
 

@@ -16,7 +16,8 @@ radix, an odd FFT half, T = 1, a waveform short of its last frame; the
 direct route at n_fft 441, 882, 220 and 446, hops that break 16-byte
 alignment, a waveform that starts off 16 bytes, ragged row and bin
 tiles), and both routes of the VGG blocks,
-which ``out_dtype`` chooses (the f32 block 2 at 161, 80 and 221 bins), a
+which ``out_dtype`` chooses (both f32 blocks at 161, 80 and 221 bins, and
+block 1 at 15, 17 and 33), a
 3xTF32 library refused or a launch that fails raising with no fallback, the VGG
 stack's autograd Function on both routes, one flagship-width meta step
 with its launch counts, the beam's bank and the LM scorer (TF32 allowed
@@ -44,8 +45,8 @@ Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 routes differ from
 the f32 plain version in summation order (rtol/atol 1e-4). The direct STFT
-and the f32 block 2 run 3xTF32 (csrc/tf32x3.cuh): products to ~2^-22 and
-the tensor cores' f32 sums, inside the same 1e-4. The bf16
+and both f32 VGG blocks run 3xTF32 (csrc/tf32x3.cuh): products to ~2^-22
+and the tensor cores' f32 sums, inside the same 1e-4. The bf16
 tensor-core route and the bf16-operand plain version sum in f32 in other
 orders, so a conv-1 value or an output near a bf16 rounding boundary may
 round to its neighbour: one bf16 ulp of the output, |d| <= 2^-7 |plain| +
@@ -270,13 +271,15 @@ class _FailingLibrary:
         return lambda *args: 1  # cudaErrorInvalidValue
 
 
-@pytest.mark.parametrize("lib", ["stft_dft_tc", "vgg_f32_tc"])
+@pytest.mark.parametrize("lib,block", [("stft_dft_tc", None),
+                                       ("vgg_f32_tc", 2), ("vgg_f32_tc", 1)])
 @pytest.mark.parametrize("how", ["refused", "launch_fails"])
-def test_tf32_kernels_raise_without_fallback(dev, monkeypatch, lib, how):
-    """The 3xTF32 routes (the direct STFT at n_fft 441, the f32 block 2):
-    a library that cannot be had, or a launch that returns a CUDA error,
-    raises; no counter moves and neither the other route nor the plain
-    version runs instead."""
+def test_tf32_kernels_raise_without_fallback(dev, monkeypatch, lib, block,
+                                             how):
+    """The 3xTF32 routes (the direct STFT at n_fft 441, the f32 blocks 2
+    and 1): a library that cannot be had, or a launch that returns a CUDA
+    error, raises; no counter moves and neither the other route nor the
+    plain version runs instead."""
     real = native.library
 
     def library(name):
@@ -290,9 +293,12 @@ def test_tf32_kernels_raise_without_fallback(dev, monkeypatch, lib, how):
     if lib == "stft_dft_tc":
         audio, _, _ = _stft_inputs(dev, 2, 9, 441, 220, 0)
         call = lambda: stft_logmag(audio, 441, 220, 9)  # noqa: E731
-    else:
+    elif block == 2:
         x, ws = _vgg_inputs(dev, (1, 16, 13, 64), 64, 128, torch.float32, 6)
         call = lambda: vgg_block2(x, *ws, out_dtype=torch.float32)  # noqa
+    else:
+        x, ws = _vgg_inputs(dev, (1, 16, 13), 1, 64, torch.float32, 6)
+        call = lambda: vgg_block1(x, *ws, out_dtype=torch.float32)  # noqa
     before = dict(native.launch_counts)
     match = "refused" if how == "refused" else "CUDA error 1"
     with pytest.raises(RuntimeError, match=match):
@@ -313,11 +319,24 @@ def test_vgg_block2_f32_tensor_core_tiles(dev, f, cin, c):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("f", [161, 80, 221, 15, 17, 33])
+@pytest.mark.parametrize("c", [64, 32])
+def test_vgg_block1_f32_tensor_core_tiles(dev, f, c):
+    """The f32 block 1 (3xTF32 conv 2, 16 x 16 conv-2 tiles) at 161, 80 and
+    221 bins and at widths one tile and one column either side of it, with
+    an odd T: ragged tiles in both axes, floored at the pool."""
+    x, ws = _vgg_inputs(dev, (2, 75, f), 1, c, torch.float32, f + c)
+    out = _run_route(vgg_block1, x, ws, torch.float32, 1)
+    ref = vgg_block_plain(x, *ws, out_dtype=torch.float32)
+    assert out.shape == ref.shape == (2, 37, f // 2, c)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("t,f", [(16, 13), (37, 161), (100, 161)])
 @pytest.mark.parametrize("cin,c", [(1, 64), (1, 32), (64, 128), (32, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vgg_kernel_matches_plain(dev, t, f, cin, c, dtype):
-    """f32: the f32 CUDA-core route against the f32 plain version; bf16:
+    """f32: the 3xTF32 route against the f32 plain version; bf16:
     the tensor-core route against the bf16-operand plain version."""
     shape = (2, t, f) if cin == 1 else (2, t, f, cin)
     x, ws = _vgg_inputs(dev, shape, cin, c, dtype, t + c)
@@ -473,7 +492,7 @@ def test_vgg_stack_forward_raises_instead_of_falling_back(dev, monkeypatch):
     real = native.library
 
     def refuse(name):
-        if name in ("vgg_tc", "vgg"):
+        if name in ("vgg_tc", "vgg_f32_tc"):
             raise RuntimeError(f"{name} refused")
         return real(name)
 

@@ -7,29 +7,34 @@ CPU (``mtl_tpu_torch/ops/tf32.py``, ``csrc/tf32x3.cuh``).
   recovers a finite x to within 2^-22 relative.
 * The packed B operands unpack (out of their core matrices, in the
   kernels' order) to the split of ``dft_matrices`` (hi, lo) and to the
-  HWIO weights (f32: the block-2 kernel splits them itself), zeros in the
+  HWIO weights (f32: the VGG kernels split them themselves), zeros in the
   padding.
 * A torch emulation of what the kernels compute: every product in three
   passes of split operands (lo.hi + hi.lo + hi.hi; tf32 x tf32 products are
   exact in f32, sums in f32), from the packed operands in the kernels'
-  order: the direct STFT at n_fft 441 (and 320, 882) and a small block 2
-  (both (C_in, C) pairs), against float64. The error stays inside the f32
-  routes' 1e-4 (phase 3's tolerance); one pass (hi.hi alone) misses it on
-  the small bins of log1p(|X|).
+  order: the direct STFT at n_fft 441 (and 320, 882), a small block 2
+  (both (C_in, C) pairs) and a small block 1 (C 64 and 32; conv 1 in f32,
+  conv 2 in three passes), against float64. The error stays inside the f32
+  routes' 1e-4 (phase 3's tolerance); one pass (hi.hi alone) misses it, on
+  the small bins of log1p(|X|) for the STFT. The block-1 emulation is also
+  held to the JAX package's ``vgg_block1_fused`` in interpret mode (1e-4).
 
-The kernels themselves run only on the card (tests/test_torch_port_cuda.py).
+The kernels themselves run only on the card (tests/test_torch_port_cuda.py);
+``cli/tf32_ablation.py``'s text variants are checked to apply here.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from mtl_tpu.ops import vgg_pallas as vp
 from mtl_tpu_torch.ops.stft import (dft_matrices, dft_tc_shape,
                                     frames_from_prepadded, pack_dft_tc)
 from mtl_tpu_torch.ops.tf32 import (core_matrices_tf32, split_tf32,
                                     tf32_round)
-from mtl_tpu_torch.ops.vgg import pack_block2_f32tc
+from mtl_tpu_torch.ops.vgg import pack_block1_f32tc, pack_block2_f32tc
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
@@ -167,6 +172,22 @@ def test_packed_block2_weights_unpack_to_hwio(cin, c):
         assert torch.equal(m[s], w[df, dt, 16 * kc:16 * (kc + 1), :].T)
 
 
+@pytest.mark.parametrize("c", [64, 32])
+def test_packed_block1_f32_weights_unpack_to_hwio(c):
+    """Block 1's stream is conv 2's slices alone, in block 2's order."""
+    rng = np.random.RandomState(c + 1)
+    w2 = torch.from_numpy(rng.randn(3, 3, c, c).astype(np.float32))
+    wp = pack_block1_f32tc(w2)
+    assert wp.shape == (9 * c // 16, c // 8, 4, 8, 4) and wp.is_contiguous()
+    m = _unpack_f32(wp)  # [NS, C (n), 16 (k)]
+    for s in range(wp.shape[0]):
+        tap, kc = divmod(s, c // 16)
+        dt, df = divmod(tap, 3)
+        assert torch.equal(m[s], w2[df, dt, 16 * kc:16 * (kc + 1), :].T)
+    w1 = torch.from_numpy(rng.randn(3, 3, 16, c).astype(np.float32))
+    assert torch.equal(wp, pack_block2_f32tc(w1, w2)[9:])
+
+
 # -- emulation of the kernels' 3xTF32 products -----------------------------
 
 def _parts(x):
@@ -268,3 +289,66 @@ def test_3xtf32_block2_within_f32_tolerance(cin, c):
     print(f"block 2 ({cin}, {c}): 3xTF32 max abs err {errs[3]:.3e}, one "
           f"pass {errs[1]:.3e}")
     assert errs[3] <= 1e-5 and errs[1] > 1e-4
+
+
+@pytest.mark.parametrize("c", [64, 32])
+def test_3xtf32_block1_within_f32_tolerance(c):
+    """The block-1 kernel's arithmetic: conv 1 in f32 (the kernel's nine
+    FMAs), conv 2 in three passes on its packed weight stream, then pool,
+    against the float64 block and the JAX package's Pallas block 1."""
+    rng = np.random.RandomState(c + 2)
+    arrs = [rng.randn(2, 16, 13).astype(np.float32),  # Pallas: T % 8 == 0
+            (rng.randn(3, 3, 1, c) * 0.3).astype(np.float32),
+            (rng.randn(c) * 0.1).astype(np.float32),
+            (rng.randn(3, 3, c, c) * 0.3 / np.sqrt(c)).astype(np.float32),
+            (rng.randn(c) * 0.1).astype(np.float32)]
+    x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in arrs)
+    wp = pack_block1_f32tc(w2)
+    y1 = F.relu(F.conv2d(x[:, None], w1.permute(3, 2, 1, 0), b1, padding=1))
+    y1 = y1.permute(0, 2, 3, 1)  # [B, T, F, C]
+    xd = x.to(F64)[:, None]
+    yd = F.relu(F.conv2d(xd, w1.to(F64).permute(3, 2, 1, 0), b1.to(F64),
+                         padding=1))
+    yd = F.relu(F.conv2d(yd, w2.to(F64).permute(3, 2, 1, 0), b2.to(F64),
+                         padding=1))
+    want = F.max_pool2d(yd, 2).permute(0, 2, 3, 1)
+    got, errs = {}, {}
+    for passes in (3, 1):
+        y = _conv_emulated(y1, wp, 0, b2, passes)
+        got[passes] = F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(
+            0, 2, 3, 1)
+        assert got[passes].shape == want.shape == (2, 8, 6, c)
+        errs[passes] = float((got[passes].to(F64) - want).abs().max())
+    print(f"block 1 (C {c}): 3xTF32 max abs err {errs[3]:.3e}, one pass "
+          f"{errs[1]:.3e}")
+    assert errs[3] <= 1e-5 and errs[1] > 1e-4
+    pallas = np.asarray(vp.vgg_block_forward_pallas(
+        *map(jnp.asarray, arrs), interpret=True, out_dtype=jnp.float32))
+    np.testing.assert_allclose(got[3].numpy(), pallas, rtol=1e-4, atol=1e-4)
+
+
+def test_tf32_ablation_variants_apply():
+    """Every text variant of ``cli/tf32_ablation.py`` applies to today's
+    sources, the block-1 tile edit keeps the lines it edits whole, and a
+    line's registers are those of the kernel instance it times."""
+    from mtl_tpu_torch.cli import tf32_ablation as ab
+
+    v = ab.variants()
+    assert set(v) == {(lib, n) for lib, _, names in ab.KERNELS.values()
+                      for n in names}
+    tile32 = v[("vgg_f32_tc", "tile32")]
+    assert "TT = 32, TF = 16;  // block 1's conv-2 tile\n" in tile32
+    assert "CTAS = 1;          // block 1's CTAs a SM\n" in tile32
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{n}' "
+        f"for 'sm_90a'\n    0 bytes stack frame, {s} bytes spill stores, "
+        f"0 bytes spill loads\nptxas info    : Used {r} registers\n"
+        for n, r, s in (("23vgg_block1_f32tc_kernelILi32EEEvPKf", 110, 0),
+                        ("23vgg_block1_f32tc_kernelILi64EEEvPKf", 124, 8),
+                        ("23vgg_block2_f32tc_kernelILi64ELi128EEEv", 184, 0)))
+    assert (ab.kernel_ptxas(log, "vgg_block1_f32tc_kernel")
+            == "registers 124 spill stores 8")
+    assert (ab.kernel_ptxas(log, "vgg_block2_f32tc_kernel")
+            == "registers 184 spill stores 0")
+    assert ab.kernel_ptxas(log, "stft_dft_tc_kernel") == "no ptxas report"
+    assert ab.main([]) == 1  # no card here: it refuses to time
