@@ -179,7 +179,14 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
 29. in one 2-rank group on the card: f32 sharded meta steps (first and
    second order) and an emb_cnn epoch step with its BatchNorm synchronized
    on (task 1, data 2) against the same steps in one process (outer
-   gradients within 1e-4 of the largest); the sequence-parallel encode of
+   gradients within 1e-4 of the largest); f32 tensor-parallel steps on
+   (task 1, data 1, model 2) at the flagship width, each against one
+   process: a first-order meta step, a second-order one with ``--clip``, a
+   joint step, a Noam epoch step and a first-order meta step of a 2-block
+   Conformer at configs[4]'s width (loss within 1e-5 relative, the
+   gradients gathered to full within 1e-4 of the largest, the replicated
+   leaves bitwise equal on both ranks after the update); the
+   sequence-parallel encode of
    a batch of 2 utterances of 40-60 s on model 2 against the unsharded
    encode (bf16 within one bf16 ulp of the largest output, f32 within
    1e-5 of it, a 2-block Conformer at configs[4]'s width in bf16), each
@@ -190,7 +197,20 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    ``test_main``: PRED lines and finite totals, every rank launched the
    FFT STFT and both bf16 VGG kernels once a batch; utterances/s and peak
    memory by rank;
-31. prints the kernels as one JSON line (6 records: both STFT routes and
+31. trains the flagship width tensor-parallel through
+   ``meta_transfer_train_main --mesh-model 2`` (2 ranks sharing the card
+   over gloo, each holding its slice of the split weights and their Adam
+   moments) with phase 28's argv (bf16, dropout 0, K 3 x (8 + 8), 3 steps)
+   beside phase 28's one-process run: every loss finite and within 1e-3
+   relative of it; every rank launched the FFT STFT, both bf16 VGG kernels
+   and the stack's backward (the replicated front-end; counts gathered by
+   the launcher); step ms, each rank's peak memory, rank 0's bytes of
+   params and moments beside the one process's;
+32. the same at configs[4]'s width: ``meta_transfer_train_main
+   --mesh-model 2 --remat`` with phase 25's flags, 2 steps: every loss
+   finite, every rank's launches as in 31, step ms, each rank's peak
+   memory beside phase 25's one-process peak;
+33. prints the kernels as one JSON line (6 records: both STFT routes and
    the four VGG routes) and, last, the result line.
 
 Phases 3b and 3c hold both routes of both VGG blocks against their plain
@@ -199,6 +219,11 @@ and at the 22.05 kHz path's (221 into block 1, 110 into block 2), and
 print their times beside phase 3's. Phase 3 also sums the cuFFT chain's
 kernels' device time a call (torch.profiler), the yardstick of the direct
 STFT's kernel alone.
+
+``python3 chip_smoke.py --tp-scaling`` (four cards) runs ``tp_scaling``
+alone after the build: first-order meta steps in one process and on
+``--mesh-model`` 2 and 4 over NCCL, at the flagship width and at
+configs[4]'s, and configs[4]'s on a task-3 and on a data-2 mesh.
 
 Any failure raises, so the script exits non-zero and prints no result. It
 also exits non-zero when torch finds no CUDA device, or when run from a
@@ -1136,6 +1161,21 @@ class _Recorder:
     def update(self, grads, state, params):
         self.grads = {k: g.detach().float().cpu() for k, g in grads.items()}
         return state
+
+
+class _Recording:
+    """``inner`` (an optimizer) that keeps the gradients it is handed, on
+    their device."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.inner.update(grads, state, params)
 
 
 def _busy_ms(events, torch):
@@ -2428,15 +2468,19 @@ def conformer_train(torch, dev, work, corpus):
     utterances of the phase-9 corpus, 3 steps; the counts zeroed before
     and read after: both bf16 VGG kernels and the stack's backward at least
     2K a step, the FFT STFT K + 1 a step. Then one step timed and
-    profiled. Returns the launch counts."""
+    profiled. Returns the launch counts and the run's peak memory (bytes,
+    for phase 32)."""
     from mtl_tpu_torch.cli.asr import meta_transfer_train_main
 
     argv = _conformer_argv(dev, corpus, os.path.join(work, "conf_models"),
                            "--remat")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
     state, out, wall, counts = _run_cli(
         torch, meta_transfer_train_main,
         argv + ["--epochs", str(CONFORMER_FO_STEPS)], work,
         "chip_conformer_meta")
+    peak = torch.cuda.max_memory_allocated()
     _finite_losses(out, CONFORMER_FO_STEPS, "Conformer meta run", False)
     check(state.step == CONFORMER_FO_STEPS, f"step {state.step}")
     del state
@@ -2449,11 +2493,12 @@ def conformer_train(torch, dev, work, corpus):
     print(f"Conformer meta run: {CONFORMER_FO_STEPS} first-order meta steps "
           f"(K {K_TASKS}, {K_SHOT} + {K_SHOT}, bf16, --remat) in "
           f"{wall:.3f} s; TOTAL TIME per iteration after the first: median "
-          f"{_per_iteration(out):.3f} ms", flush=True)
+          f"{_per_iteration(out):.3f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
     _time_meta_step(torch, dev, corpus, argv, "chip_conformer_timing",
                     "Conformer meta step (first order, --remat)",
                     f"configs[4] width, bf16, K {K_TASKS}, {K_SHOT}+{K_SHOT}")
-    return counts
+    return counts, peak
 
 
 def conformer_second_order(torch, dev, work, corpus):
@@ -2876,6 +2921,7 @@ def lm_parity(torch, dev, tasks):
 # -- the mesh: task/data-parallel training, sequence-parallel serving ------
 
 MESH_STEPS, SP_UTTERANCES, SP_FRAMES = 3, 4, 6400
+TP_CONFORMER_STEPS = 2
 SP_COUNTS = ("vgg_block1", "vgg_block2", "vgg_block1_f32", "vgg_block2_f32")
 
 
@@ -2911,15 +2957,17 @@ def mesh_train(torch, dev, corpus):
     finite and within 1e-3 relative of the single process's; the FFT STFT,
     both bf16 VGG kernels and the stack's backward launched on every rank
     (each rank's counts gathered by the launcher); step ms beside the
-    single process's and the peak memory of each rank."""
+    single process's and the peak memory of each rank. Returns (the argv,
+    the single process's output, its peak MiB, its state's bytes) for
+    phase 31."""
     from mtl_tpu_torch.cli.asr import meta_transfer_train_main
     from mtl_tpu_torch.parallel import launch
 
     argv = _mesh_train_argv(dev, corpus)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
-    _, single, _, _ = _run_cli(torch, meta_transfer_train_main, argv, WORK,
-                               "chip_mesh_single")
+    single_state, single, _, _ = _run_cli(torch, meta_transfer_train_main,
+                                          argv, WORK, "chip_mesh_single")
     single_peak = torch.cuda.max_memory_allocated() / 2 ** 20
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -2958,6 +3006,169 @@ def mesh_train(torch, dev, corpus):
           f"{_per_iteration(single):.3f} ms; peak memory one process "
           f"{single_peak:.1f} MiB; mesh run {wall:.1f} s wall with the "
           f"ranks' start", flush=True)
+    return argv, single, single_peak, _state_bytes(single_state)
+
+
+def _state_bytes(state):
+    """Bytes of a ``TrainState``'s parameters and optimizer moments."""
+    tensors = list(state.params.values())
+    for value in state.opt_state.tensors().values():
+        if isinstance(value, dict):
+            tensors += list(value.values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _tp_rank_check(stats, steps, what):
+    """Every rank of a tensor-parallel meta run of ``steps`` steps launched
+    the replicated front-end's kernels as one process does: both bf16 VGG
+    kernels and the stack's backward 2K times a step, the FFT STFT K + 1
+    (the shared query's features once), the direct STFT and the f32 VGG
+    kernels never."""
+    need = {"vgg_block1": 2 * K_TASKS * steps, "vgg_block2": 2 * K_TASKS
+            * steps, "vgg_stack_bwd": 2 * K_TASKS * steps,
+            "stft_logmag": (K_TASKS + 1) * steps}
+    for r, st in enumerate(stats):
+        check(all(st[k] >= n for k, n in need.items())
+              and st["stft_logmag_direct"] == 0
+              and st["vgg_block1_f32"] == st["vgg_block2_f32"] == 0,
+              f"{what}: rank {r} must launch at least {need}, the direct "
+              f"STFT and the f32 VGG kernels never: {st}")
+    print(f"launches and peak memory by rank in the {what}: "
+          + _rank_lines(stats, ("stft_logmag", "vgg_block1", "vgg_block2",
+                                "vgg_stack_bwd")), flush=True)
+
+
+def tp_train(torch, dev, argv, single, single_peak, single_bytes):
+    """Phase 31: ``meta_transfer_train_main --mesh-model 2`` at the
+    flagship width (2 ranks sharing the card over gloo, tensor parallel:
+    each holds its slice of the split weights and their Adam moments), phase
+    28's argv (bf16, dropout 0, 3 steps, K 3 x (8 + 8)), beside phase 28's
+    one-process run of it: every loss finite and within 1e-3 relative of
+    the one process's; every rank launched the FFT STFT, both bf16 VGG
+    kernels and the stack's backward (the launcher's counts); step ms
+    beside the one process's; each rank's peak memory; rank 0's bytes of
+    params and moments beside the one process's (the ranks hold equal
+    slices)."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+    from mtl_tpu_torch.parallel import launch
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, out, wall, _ = _run_cli(
+        torch, meta_transfer_train_main, argv + ["--mesh-model", "2"], WORK,
+        "chip_tp_model2")
+    mesh_line = [ln for ln in out.splitlines() if ln.startswith("MESH")]
+    check(len(mesh_line) == 1 and "task=1 data=1 model=2" in mesh_line[0],
+          f"TP mesh line {mesh_line}")
+    want = _finite_losses(single, MESH_STEPS, "single-process run", False)
+    got = _finite_losses(out, MESH_STEPS, "TP run", False)
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    print(f"TP train: TRAIN LOSS model-2 mesh {got} vs one process {want}: "
+          f"max relative difference {rel:.3e} (bound 1e-3; the printed 4 "
+          f"decimals)", flush=True)
+    check(rel <= 1e-3, f"TP losses {got} vs single {want}")
+    stats = list(launch.rank_stats)
+    check(len(stats) == 2, f"rank stats {stats}")
+    _tp_rank_check(stats, MESH_STEPS, "TP train run")
+    mine = _state_bytes(state)
+    print(f"TP train: TOTAL TIME per iteration after the first (host "
+          f"clock): model-2 mesh over 2 ranks on one card "
+          f"{_per_iteration(out):.3f} ms vs one process "
+          f"{_per_iteration(single):.3f} ms; params + Adam moments rank 0 "
+          f"{mine / 2**20:.1f} MiB vs one process {single_bytes / 2**20:.1f}"
+          f" MiB ({mine / single_bytes:.3f}); peak memory "
+          f"one process {single_peak:.1f} MiB; run {wall:.1f} s wall with "
+          f"the ranks' start", flush=True)
+    check(mine < single_bytes, "TP rank 0 holds less than one process")
+    del state
+    _free(torch)
+
+
+def tp_conformer(torch, dev, work, corpus, single_peak):
+    """Phase 32: tensor-parallel training at configs[4]'s width,
+    ``meta_transfer_train_main --mesh-model 2 --remat`` (2 ranks sharing
+    the card over gloo; phase 25's flags: bf16, dropout 0.1, K 3 x (8 +
+    8)), 2 steps: every loss finite; every rank launched the FFT STFT, both
+    bf16 VGG kernels and the stack's backward; step ms; each rank's peak
+    memory beside phase 25's one-process peak."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+    from mtl_tpu_torch.parallel import launch
+
+    argv = _conformer_argv(dev, corpus, os.path.join(work, "conf_models"),
+                           "--remat", "--mesh-model", "2")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, out, wall, _ = _run_cli(
+        torch, meta_transfer_train_main,
+        argv + ["--epochs", str(TP_CONFORMER_STEPS)], work,
+        "chip_tp_conformer")
+    _finite_losses(out, TP_CONFORMER_STEPS, "TP Conformer run", False)
+    check(state.step == TP_CONFORMER_STEPS, f"step {state.step}")
+    stats = list(launch.rank_stats)
+    check(len(stats) == 2, f"rank stats {stats}")
+    _tp_rank_check(stats, TP_CONFORMER_STEPS, "TP Conformer run")
+    peaks = [st["peak_bytes"] / 2**30 for st in stats]
+    print(f"TP Conformer run: {TP_CONFORMER_STEPS} first-order meta steps "
+          f"(configs[4] width, --remat, model 2 over 2 ranks on one card) "
+          f"in {wall:.3f} s; TOTAL TIME per iteration after the first "
+          f"{_per_iteration(out):.3f} ms; params + Adam moments rank 0 "
+          f"{_state_bytes(state) / 2**30:.3f} GiB; peak memory by rank "
+          f"{[round(p, 2) for p in peaks]} GiB vs one process (phase 25) "
+          f"{single_peak / 2**30:.2f} GiB", flush=True)
+    del state
+    _free(torch)
+
+
+# (cell, mesh flags): --tp-scaling's runs, in order
+TP_SCALING = (("flagship", []), ("flagship", ["--mesh-model", "2"]),
+              ("flagship", ["--mesh-model", "4"]), ("conformer", []),
+              ("conformer", ["--mesh-model", "4"]),
+              ("conformer", ["--mesh-model", "2"]),
+              ("conformer", ["--mesh-task", "3"]),
+              ("conformer", ["--mesh-data", "2"]))
+
+
+def tp_scaling(torch, dev, corpus):
+    """``--tp-scaling`` (four cards, not part of the smoke run): first-order
+    meta steps, one process beside ``--mesh-model`` 2 and 4 over NCCL with
+    a card per rank, at the flagship width (phase 28's argv, 4 steps) and
+    at configs[4]'s (phase 25's flags with ``--remat``, dropout 0, 3
+    steps), and at configs[4]'s on a task-3 mesh (each task's gradient
+    computed as in one process, the sum over the tasks in another order)
+    and on a data-2 mesh (each rank half of every batch, so every product
+    and gradient rounded otherwise, without a split weight): each run's
+    losses, ms per iteration after the first (host clock), rank 0's params
+    + moments and each rank's peak memory."""
+    from mtl_tpu_torch.cli.asr import meta_transfer_train_main
+    from mtl_tpu_torch.parallel import launch
+
+    check(torch.cuda.device_count() >= 4,
+          f"--tp-scaling needs 4 cards, found {torch.cuda.device_count()}")
+    flagship = _mesh_train_argv(dev, corpus)
+    conformer = _conformer_argv(dev, corpus, os.path.join(WORK,
+                                                          "conf_models"),
+                                "--remat", "--dropout", "0")
+    for cell, flags in TP_SCALING:
+        steps = 4 if cell == "flagship" else 3
+        argv = (flagship if cell == "flagship" else conformer) + flags
+        name = (f"{cell}_" + (f"{flags[0][7:]}{flags[1]}_nccl" if flags
+                              else "one_process"))
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        launch.rank_stats[:] = []
+        state, out, wall, _ = _run_cli(
+            torch, meta_transfer_train_main, argv + ["--epochs", str(steps)],
+            WORK, name)
+        losses = _finite_losses(out, steps, name, False)
+        peaks = ([s["peak_bytes"] / 2**30 for s in launch.rank_stats]
+                 or [torch.cuda.max_memory_allocated() / 2**30])
+        mesh = [ln for ln in out.splitlines() if ln.startswith("MESH")]
+        print(f"{name}: {mesh} losses {losses}; per iteration after the "
+              f"first {_per_iteration(out):.3f} ms; params + moments rank 0 "
+              f"{_state_bytes(state) / 2**30:.4f} GiB; peak GiB by rank "
+              f"{[round(p, 3) for p in peaks]}; wall {wall:.1f} s",
+              flush=True)
+        del state
 
 
 def _sp_corpus(work):
@@ -3058,6 +3269,11 @@ def _mesh_check_rank(mesh, spec):
     dev = mesh.device
     out = {}
     dp = make_mesh((1, 2, 1), dev)
+    tpm = make_mesh((1, 1, 2), dev)
+    for name, cfg_json, weights, sup, qry, kind in spec["tp_steps"]:
+        out[name] = _tp_check(torch, tpm, dev, Config.from_dict(
+            json.loads(cfg_json)), len(spec["vocab"]), weights, sup, qry,
+                              kind)
     for name, cfg_json, weights, sup, qry in spec["steps"]:
         cfg = Config.from_dict(json.loads(cfg_json))
         results = []
@@ -3117,6 +3333,55 @@ def _mesh_check_rank(mesh, spec):
     return out if mesh.is_root else None
 
 
+def _tp_check(torch, tpm, dev, cfg, vocab_size, weights, sup, qry, kind):
+    """Phase 29's tensor-parallel steps (on every rank of the 2-rank
+    group): one step of ``kind`` ("meta", "joint" or "epoch") on the
+    (task 1, data 1, model 2) mesh ``tpm``, its gradients gathered to full,
+    and whether the replicated leaves are bitwise equal on both ranks after
+    the update; rank 0 then runs the same step in one process. Returns
+    [(loss, gradients, equal), (loss, gradients, True)] on rank 0."""
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.parallel import comm, tp
+    from mtl_tpu_torch.train.optim import (Adam, make_epoch_optimizer,
+                                           make_meta_optimizers)
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_joint_step, make_meta_step)
+
+    results = []
+    for on_mesh in (True, False):
+        if not (on_mesh or tpm.is_root):
+            continue
+        model = build_model(cfg, vocab_size, dev)
+        model.load_state_dict(weights)
+        if on_mesh:
+            tp.shard_module(model, tpm.model)
+        inner = {"meta": lambda: make_meta_optimizers(cfg)[1],
+                 "joint": lambda: Adam(cfg.train.lr),
+                 "epoch": lambda: make_epoch_optimizer(cfg)}[kind]()
+        rec = _Recording(inner)
+        state = init_train_state(model, rec)
+        m = tpm if on_mesh else None
+        if kind == "meta":
+            _, met = make_meta_step(model, cfg, rec, mesh=m)(
+                state, batch_to_device(sup, dev), batch_to_device(qry, dev))
+            loss = met["outer_loss"]
+        else:
+            _, loss, _ = make_joint_step(model, cfg, rec, mesh=m)(
+                state, batch_to_device(sup, dev))
+        grads, equal = rec.grads, True
+        if on_mesh:
+            grads = tp.gather_tensors(grads, model.tp_layout, tpm.model)
+            held = torch.cat([p.detach().reshape(-1) for n, p in
+                              state.params.items()
+                              if n not in model.tp_layout])
+            every = comm.all_gather(held, tpm.world)
+            equal = bool((every == every[0]).all())
+        results.append((float(loss), {k: v.float().cpu()
+                                      for k, v in grads.items()}, equal))
+        del model, state, rec
+    return results if tpm.is_root else None
+
+
 def comm_all(torch, values, mesh):
     """Every rank's ``values`` (ints), gathered over the mesh."""
     from mtl_tpu_torch.parallel import comm
@@ -3173,12 +3438,34 @@ def mesh_checks(torch, dev, corpus, ckpt, sp_manifest):
     encodes.append(("SP encode Conformer 2 blocks d 1024 bfloat16",
                     ccfg.to_json(), model.state_dict(), batch))
     del model
+    tp_steps = []
+    for name, second, clip, kind in (
+            ("TP meta step first order", False, False, "meta"),
+            ("TP meta step second order --clip", True, True, "meta"),
+            ("TP joint step", False, False, "joint"),
+            ("TP Noam epoch step", False, False, "epoch")):
+        tcfg = Config.from_dict(json.loads(cfg.to_json()))
+        tcfg.train.second_order, tcfg.train.clip = second, clip
+        sup = support if kind != "epoch" else {k: v[:1]
+                                               for k, v in support.items()}
+        tp_steps.append((name, tcfg.to_json(), weights, sup,
+                         query if kind == "meta" else None, kind))
+    tcfg = config_from_args(build_parser("").parse_args(
+        CONFORMER_FLAGS + ["--num-enc-layers", "2", "--dtype", "float32",
+                           "--dropout", "0"]))
+    model = build_model(tcfg, len(vocab))
+    init_weights(model, torch.Generator().manual_seed(SEED + 13))
+    tp_steps.append(("TP Conformer meta step (2 blocks at configs[4]'s "
+                     "width)", tcfg.to_json(), model.state_dict(), support,
+                     query, "meta"))
+    del model
     mcfg = Config()
     mcfg.mesh.data = 2
     _free(torch)
     t0 = time.perf_counter()
     out = launch.run(mcfg, dev, _mesh_check_rank, {
-        "steps": steps, "encodes": encodes, "vocab": vocab})
+        "steps": steps, "encodes": encodes, "vocab": vocab,
+        "tp_steps": tp_steps})
     print(f"mesh checks: 2 ranks over {launch.backend_for(dev, 2)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, _, _, _, _ in steps:
@@ -3196,6 +3483,21 @@ def mesh_checks(torch, dev, corpus, ckpt, sp_manifest):
               and err <= 1e-4 * scale and berr <= 1e-5,
               f"{name}: loss {loss} vs {want_loss}, grads {err}, "
               f"buffers {berr}")
+    for name, _, _, _, _, _ in tp_steps:
+        (loss, grads, equal), (want_loss, want, _) = out[name]
+        scale = max(float(g.abs().max()) for g in want.values())
+        err = max(float((grads[k] - g).abs().max())
+                  for k, g in want.items())
+        print(f"TP parity {name} (f32, (task 1, data 1, model 2) vs one "
+              f"process, the card): loss {loss:.7f} vs {want_loss:.7f}; "
+              f"outer gradients (gathered) max_abs_err {err:.3e} of max "
+              f"{scale:.3e}; replicated leaves bitwise equal on both ranks "
+              f"after the update: {equal}", flush=True)
+        check(math.isclose(loss, want_loss, rel_tol=1e-5)
+              and err <= 1e-4 * scale and equal
+              and set(grads) == set(want),
+              f"{name}: loss {loss} vs {want_loss}, grads {err}, replicated "
+              f"leaves equal {equal}")
     for name, _, _, _ in encodes:
         got, want, every, plain_peak, slices = out[name]
         largest = float(want.abs().max())
@@ -3256,6 +3558,15 @@ def main():
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
+
+    if sys.argv[1:] == ["--tp-scaling"]:
+        from mtl_tpu_torch.data.synthetic import make_synthetic_corpus
+
+        corpus = os.path.join(WORK, "train_corpus")
+        make_synthetic_corpus(corpus, num_tasks=K_TASKS, utts_per_task=16,
+                              min_sec=4.0, max_sec=7.9, seed=SEED + 1)
+        tp_scaling(torch, dev, corpus)
+        return 0
 
     # 3. kernels against their plain versions; the VGG blocks at the
     # widths of other paths: 3b. log-fbank, 3c. 22.05 kHz
@@ -3385,7 +3696,7 @@ def main():
     # remat on the card
     t0 = time.perf_counter()
     conformer_serve(torch, dev, corpus_dir, os.path.join(WORK, "models"))
-    conformer_train(torch, dev, WORK, train_corpus)
+    _, conformer_peak = conformer_train(torch, dev, WORK, train_corpus)
     conformer_second_order(torch, dev, WORK, train_corpus)
     conformer_parity(torch, dev, train_corpus)
     print(f"Conformer, second-order and remat phases "
@@ -3395,12 +3706,21 @@ def main():
     # steps and SP encodes against one process; 30. sequence-parallel
     # serving through test_main --mesh-model 2
     t0 = time.perf_counter()
-    mesh_train(torch, dev, train_corpus)
+    mesh_argv, single, single_peak, single_bytes = mesh_train(
+        torch, dev, train_corpus)
     sp_manifest, sp_labels = _sp_corpus(WORK)
     mesh_checks(torch, dev, train_corpus, ckpt, sp_manifest)
     sp_serve(torch, dev, ckpt, sp_manifest, sp_labels)
     print(f"mesh and sequence-parallel phases "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 31. tensor-parallel meta training at the flagship width beside
+    # phase 28's one process; 32. at configs[4]'s width
+    t0 = time.perf_counter()
+    tp_train(torch, dev, mesh_argv, single, single_peak, single_bytes)
+    tp_conformer(torch, dev, WORK, train_corpus, conformer_peak)
+    print(f"tensor-parallel phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # each kernel route must have run on its path: the bf16 tensor-core VGG
     # kernels and the FFT STFT on the served path, the f32 VGG kernels on
@@ -3413,7 +3733,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels not launched on their path: {missing}")
 
-    # 31. results
+    # 33. results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

@@ -27,12 +27,13 @@
   ``--mesh-model M`` the long-form greedy path, its encode sequence-parallel
   over M ranks (``parallel/sp.py``).
 
-The trainers take ``--mesh-task`` / ``--mesh-data``: the calling process
-becomes rank 0 of the mesh and starts the other ranks itself
+The trainers take ``--mesh-task`` / ``--mesh-data`` / ``--mesh-model``
+(tensor parallel, ``parallel/tp.py``): the calling process becomes rank 0
+of the mesh of task x data x model ranks and starts the other ranks itself
 (``parallel/launch.py``); it alone prints and returns. The mesh's refusals
-(divisibility, ``--scan-tasks``, the epoch trainer's task axis, training
-``--mesh-model``) are raised before any rank starts, as is ``--device
-cuda`` without a card.
+(divisibility of the batch axes and of the split weights, ``--scan-tasks``,
+the epoch trainer's task axis) are raised before any rank starts, as is
+``--device cuda`` without a card.
 """
 
 from __future__ import annotations
@@ -50,13 +51,12 @@ from ..lm.fusion import LMScorer
 from ..models.discriminator import Discriminator
 from ..models.subsampler import subsampled_length
 from ..models.transformer import build_model
-from ..parallel import launch
+from ..parallel import launch, tp
 from ..parallel.mesh import requested_size
 from ..parallel.sp import greedy_search_sp
 from ..train.steps import prepare_features
 from ..train.trainer import (EpochTrainer, JointTrainer, MetaTrainer,
-                             TransientTrainer, check_mesh, check_ported,
-                             meta_evaluate)
+                             TransientTrainer, check_mesh, meta_evaluate)
 from ..utils.checkpoint import load_checkpoint
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer, calculate_cer_en_zh, calculate_wer
@@ -89,19 +89,22 @@ def _discriminator(cfg, device):
 
 def _train_on_mesh(args, kind: str, run, *extra):
     """``run(mesh, args, *extra)`` on the mesh of ``--mesh-task`` /
-    ``--mesh-data`` (one process without one), after the refusals that
-    need no rank: the device, training ``--mesh-model``, and ``kind``'s
-    mesh checks on the run's (possibly resumed) config."""
+    ``--mesh-data`` / ``--mesh-model`` (one process without one), after the
+    refusals that need no rank: the device, ``kind``'s mesh checks on the
+    run's (possibly resumed) config, and under tensor parallel a split
+    weight dim that ``--mesh-model`` does not divide."""
     cfg = config_from_args(args)
     device = resolve_device(cfg.device)
     if requested_size(cfg) > 1:
-        check_ported(cfg)
         resumed = maybe_resume(cfg)[0]
-        if kind != "epoch" and (resumed.train.adversarial
-                                or resumed.train.multitask):
+        disc = resumed.train.adversarial or resumed.train.multitask
+        if kind != "epoch" and disc:
             kind = "joint"
-        check_mesh(resumed, launch.plan(cfg, device),
-                   len(resumed.data.train_manifest_list), kind)
+        shape = launch.plan(cfg, device)
+        check_mesh(resumed, shape, len(resumed.data.train_manifest_list),
+                   kind)
+        if shape[2] > 1 and not disc:
+            tp.check_config(resumed, shape[2])
     return launch.run(cfg, device, run, args, *extra)
 
 
@@ -126,7 +129,7 @@ def _meta_train(mesh, args, trainer_cls):
               else "Meta Trainer is initialized")
     state = trainer.train(train_ds, valid_sets, start_it=start_it,
                           num_it=cfg.train.epochs, last_metrics=metrics)
-    if args.num_meta_test and valid_sets and trainer.is_root:
+    if args.num_meta_test and valid_sets and trainer.evaluates:
         meta_evaluate(trainer, state.params, train_ds, valid_sets,
                       num_meta_test=args.num_meta_test)
     return state

@@ -43,6 +43,12 @@ its kernel [d_model, C] transposed onto ``linear.weight`` [C, d_model]
 and its bias onto ``linear.bias`` (``disc_params_to_torch`` /
 ``torch_to_flax_disc_params``); its optimizer state maps the same way.
 
+Under tensor parallel (``parallel/tp.py``) a rank holds slices of the
+split leaves: ``flax_params_to_torch_shard`` cuts a Flax tree to one
+rank's state_dict and ``torch_shards_to_flax_params`` joins every rank's
+back (``flax_path`` names a port key's flax path, which the rule table
+matches).
+
 The word-level LM (mtl_tpu/lm/model.py ``RNNLM``) maps by its own rules
 (``lm_params_to_torch`` / ``torch_to_flax_lm_params``): the flax cells keep
 one Dense per gate, kernels [in, out]; the port stacks them in torch's gate
@@ -63,7 +69,7 @@ keeps the cells' single bias per gate in ``rnns.{i}.bias``:
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -113,6 +119,31 @@ def flax_params_to_torch(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def flax_path(key: str, ndim: int) -> List[str]:
+    """The flax path (below the collection) of the port's state_dict entry
+    ``key``, a tensor of ``ndim`` dims."""
+    parts = key.split(".")
+    if parts[:2] == ["conv", "convs"]:
+        return ["conv", "conv", f"Conv_{parts[2]}"] + parts[3:]
+    if parts[:2] == ["conv", "bns"]:
+        return ["conv", "conv", f"BatchNorm_{parts[2]}"] + parts[3:]
+    path: List[str] = []
+    for p in parts:
+        if p.isdigit() and path and path[-1] in ("layers", "blocks"):
+            kind = "block" if path[-1] == "blocks" else "layers"
+            path[-1] = f"{kind}_{p}"
+        else:
+            path.append(p)
+    if path[-1] == "weight":
+        if ndim in (2, 3) and path[-2] != "trg_embedding":
+            path[-1] = "kernel"
+        elif ndim == 2:
+            path[-1] = "embedding"
+        else:
+            path[-1] = "scale"
+    return path
+
+
 def torch_to_flax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
     """Port state_dict -> Flax ``{"params": ...}`` tree of float32 numpy,
     with a ``batch_stats`` collection when the state_dict holds emb_cnn's
@@ -120,36 +151,40 @@ def torch_to_flax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
     tree: dict = {}
     stats: dict = {}
     for key, t in state_dict.items():
-        parts = key.split(".")
         a = t.detach().float().cpu().numpy()
-        node = tree
-        if parts[:2] == ["conv", "convs"]:
-            path = ["conv", "conv", f"Conv_{parts[2]}"] + parts[3:]
-        elif parts[:2] == ["conv", "bns"]:
-            path = ["conv", "conv", f"BatchNorm_{parts[2]}"] + parts[3:]
-            if path[-1] in ("mean", "var"):
-                node = stats
-        else:
-            path = []
-            for p in parts:
-                if p.isdigit() and path and path[-1] in ("layers", "blocks"):
-                    kind = "block" if path[-1] == "blocks" else "layers"
-                    path[-1] = f"{kind}_{p}"
-                else:
-                    path.append(p)
-            if path[-1] == "weight":
-                if a.ndim == 3:  # the depthwise conv: [C, 1, k] -> [k, 1, C]
-                    path[-1], a = "kernel", a.transpose(2, 1, 0)
-                elif a.ndim == 2 and path[-2] != "trg_embedding":
-                    path[-1], a = "kernel", a.T
-                elif a.ndim == 2:
-                    path[-1] = "embedding"
-                else:
-                    path[-1] = "scale"
+        path = flax_path(key, a.ndim)
+        node = stats if (path[:2] == ["conv", "conv"]
+                         and path[-1] in ("mean", "var")) else tree
+        if path[-1] == "kernel" and a.ndim == 3:  # the depthwise conv
+            a = a.transpose(2, 1, 0)  # [C, 1, k] -> [k, 1, C]
+        elif path[-1] == "kernel" and a.ndim == 2 and path[0] != "conv":
+            a = a.T
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(a)
     return {"params": tree, **({"batch_stats": stats} if stats else {})}
+
+
+def flax_params_to_torch_shard(params, layout, size: int, index: int
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax variables -> the port's state_dict as rank ``index`` of a
+    ``model`` axis of ``size`` holds it under tensor parallel: each leaf of
+    ``layout`` (``parallel/tp.py:param_layout``) cut to the rank's
+    slice."""
+    from .parallel import tp
+
+    return {k: tp.part(v, layout[k], size, index) if k in layout else v
+            for k, v in flax_params_to_torch(params).items()}
+
+
+def torch_shards_to_flax_params(shards, layout) -> dict:
+    """The inverse: every rank's state_dict, in rank order -> Flax
+    ``{"params": ...}`` (and ``batch_stats``) of the full tensors."""
+    from .parallel import tp
+
+    full = {k: tp.whole([sd[k] for sd in shards], layout[k])
+            if k in layout else v for k, v in shards[0].items()}
+    return torch_to_flax_params(full)
 
 
 def _opt_tree_to_torch(tree) -> Dict[str, torch.Tensor]:

@@ -38,6 +38,17 @@ conv module's output (:126); drawn from the caller's generator as
 ``block_{i}``), so ``interop.py`` maps them by the generic rules. With
 ``remat`` each block runs under ``remat.checkpoint_module``, as
 ``nn.remat(ConformerBlock)`` (:179-183).
+
+Split over ``tp`` (parallel/tp.py, JAX's rules): ``q``/``k``/``v``,
+``ff*/Dense_0`` and ``pw1`` are column-split, ``out``, ``ff*/Dense_1`` and
+``pw2`` row-split, as ``layers.py`` does it. ``pw1`` holds this rank's
+slice of the GLU's values and the matching slice of its gates, so the GLU
+gives this rank's channels; they are gathered (``comm.all_gather_last``)
+before the depthwise conv and its LayerNorm, which run whole and
+replicated on every rank, and sliced again for ``pw2``. RoPE rotates each
+head as before; a head that straddles ranks is gathered as in
+``layers.py``. The FFN's hidden dropout draws the full-shape mask and
+keeps this rank's slice.
 """
 
 from __future__ import annotations
@@ -51,7 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masks import attn_pad_mask_from_lengths, non_pad_mask_from_lengths
-from .layers import dropout, linear
+from ..parallel import comm
+from .layers import dropout, linear, tp_linear
 from .remat import checkpoint_module
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -80,6 +92,8 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 class ConformerFFN(nn.Module):
+    tp = None
+
     def __init__(self, dim_model: int, expansion: int = 4,
                  dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -90,12 +104,16 @@ class ConformerFFN(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = linear(self.LayerNorm_0(x.float()), self.Dense_0, self.dtype)
-        h = dropout(F.silu(h), self.dropout, gen)
-        return dropout(linear(h, self.Dense_1, self.dtype), self.dropout, gen)
+        h = comm.copy_to_model(self.LayerNorm_0(x.float()), self.tp)
+        h = linear(h, self.Dense_0, self.dtype)
+        h = dropout(F.silu(h), self.dropout, gen, -1, self.tp)
+        return dropout(tp_linear(h, self.Dense_1, self.dtype, self.tp),
+                       self.dropout, gen)
 
 
 class ConformerAttention(nn.Module):
+    tp = None
+
     def __init__(self, num_heads: int, dim_model: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -110,10 +128,17 @@ class ConformerAttention(nn.Module):
     def project(self, x: torch.Tensor):
         """(q, k, v) heads [B, T, H, D] in the compute dtype, before RoPE."""
         b, t, _ = x.shape
-        h, dh = self.num_heads, self.dim_model // self.num_heads
+        dh = self.dim_model // self.num_heads
         y = self.LayerNorm_0(x.float()).to(self.dtype)
-        return tuple(linear(y, lin, self.dtype).view(b, t, h, dh)
-                     for lin in (self.q, self.k, self.v))
+        y = comm.copy_to_model(y, self.tp)
+        straddles = self.tp is not None and self.num_heads % self.tp.size
+        out = []
+        for lin in (self.q, self.k, self.v):
+            h = linear(y, lin, self.dtype)
+            if straddles:
+                h = comm.all_gather_last(h, self.tp)
+            out.append(h.view(b, t, -1, dh))
+        return tuple(out)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                q_angles: torch.Tensor, k_angles: torch.Tensor,
@@ -129,11 +154,16 @@ class ConformerAttention(nn.Module):
         scores = scores / math.sqrt(q.shape[-1])
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask[:, None], float("-inf"))
-        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen)
+        local = q.shape[2] < self.num_heads  # this rank's heads
+        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen, 1,
+                       self.tp if local else None)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn.to(self.dtype).float(),
                            v.float())
-        ctx = ctx.to(self.dtype).reshape(b, t, self.dim_model)
-        return dropout(linear(ctx, self.out, self.dtype), self.dropout, gen)
+        ctx = ctx.to(self.dtype).reshape(b, t, -1)
+        if self.tp is not None and not local:
+            ctx = comm.scatter_to_model(ctx, self.tp)
+        return dropout(tp_linear(ctx, self.out, self.dtype, self.tp),
+                       self.dropout, gen)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -181,6 +211,10 @@ class DepthwiseConv(nn.Module):
 
 
 class ConformerConvModule(nn.Module):
+    tp = None
+    # pw1 is split as two blocks: the GLU's values and its gates
+    TP_GROUPS = {"pw1": 2}
+
     def __init__(self, dim_model: int, kernel_size: int = 31,
                  dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16,
                  second_order: bool = False):
@@ -200,7 +234,9 @@ class ConformerConvModule(nn.Module):
         conv's input [B, T, C] to the same with ``dw.pad`` frames of the
         neighbouring time slices on each side."""
         h = self.LayerNorm_0(x.float()).to(self.dtype)
+        h = comm.copy_to_model(h, self.tp)
         h = F.glu(linear(h, self.pw1, self.dtype), dim=-1)
+        h = comm.all_gather_last(h, self.tp)  # every channel, on every rank
         if pad_mask is not None:  # padding stays zero into the conv
             h = h * pad_mask.to(h.dtype)
         if context is not None:
@@ -208,7 +244,9 @@ class ConformerConvModule(nn.Module):
         else:
             h = self.dw(h, self.dtype)
         h = F.silu(self.norm(h.float()).to(self.dtype))
-        return dropout(linear(h, self.pw2, self.dtype), self.dropout, gen)
+        h = comm.scatter_to_model(h, self.tp)
+        return dropout(tp_linear(h, self.pw2, self.dtype, self.tp),
+                       self.dropout, gen)
 
 
 class ConformerBlock(nn.Module):

@@ -13,6 +13,12 @@ self-attention mask is key-pad | subsequent; the decoder-encoder mask comes
 from the *raw* encoder input lengths. ``decode_step`` decodes one token over
 a KV cache; as the reference's search does, it passes no decoder-encoder
 mask, so padded encoder frames are attended.
+
+Split over ``tp`` (parallel/tp.py), the layers split as ``layers.py``
+says and the output projection is row-split (JAX's rule for
+``output_linear``): each rank multiplies its slice of d_model and the
+partial logits are all-reduced before the loss; ``trg_embedding`` stays
+replicated. Decoding runs unsplit models only.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ from torch import nn
 from ..data.vocab import EOS_ID, PAD_ID
 from ..ops.masks import (attn_key_pad_mask, attn_pad_mask_from_lengths,
                          non_pad_mask_from_ids, subsequent_mask)
+from ..parallel import comm
 from .layers import (FeedForward, MultiHeadAttention, PositionalEncoding,
-                     dropout, linear)
+                     dropout, linear, row_linear)
 
 # (k, v) pair per layer
 LayerKV = Tuple[torch.Tensor, torch.Tensor]
@@ -83,6 +90,9 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
+    # the model axis when ``output_linear`` is row-split (parallel/tp.py)
+    tp = None
+
     def __init__(self, vocab_size: int, num_layers: int, num_heads: int,
                  dim_emb: int, dim_model: int, dim_inner: int, dim_key: int,
                  dim_value: int, dropout: float = 0.1,
@@ -121,6 +131,10 @@ class Decoder(nn.Module):
         for layer in self.layers:
             h = layer(h, enc_output, non_pad_mask, self_attn_mask,
                       dec_enc_attn_mask, gen)
+        if self.tp is not None:  # partial logits of this rank's d_model rows
+            h = comm.scatter_to_model(h, self.tp)
+            return row_linear(h, self.output_linear, self.dtype,
+                              self.tp).float()
         return linear(h, self.output_linear, self.dtype).float()
 
     def precompute_enc_kv(self, enc_output: torch.Tensor) -> List[LayerKV]:

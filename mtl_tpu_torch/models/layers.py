@@ -17,6 +17,23 @@ it: the FFN output (mtl_tpu/models/layers.py:115), the attention
 probabilities (:179) and the attention output (:190); it draws from the
 ``torch.Generator`` the caller passes and is the identity without one
 (deterministic). Decoding keeps an explicit KV cache, updated in place.
+
+Tensor parallel (``parallel/tp.py``): ``shard_module`` sets ``tp`` (the
+``model`` axis) on the layers and ``tp_kind`` ("col" / "row") on the split
+``nn.Linear``s, whose weights then hold this rank's slice. A column
+linear's input is replicated and enters through ``comm.copy_to_model``
+(once per distinct input tensor); its output is this rank's slice of the
+features. A row linear takes that slice and all-reduces its partial
+product before the bias (``row_linear``). A factorized column linear
+gathers its rank-r bottleneck over the axis between its two kernels; a
+factorized row linear reduce-scatters it (each rank then holds a slice of
+the reduced bottleneck, the input of its slice of ``b``). Attention runs
+over this rank's heads when the axis size divides the head count; else a
+head straddles ranks, and q, k and v are gathered whole (every rank
+attends over every head) and the context is sliced again for the output
+linear. A dropout on a split activation draws the full-shape mask and
+keeps this rank's part, so every rank draws the masks of the unsplit
+layer. With ``tp`` None (the default) nothing of this runs.
 """
 
 from __future__ import annotations
@@ -28,6 +45,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import comm
 
 
 def sinusoid_table(max_length: int, dim_model: int) -> np.ndarray:
@@ -58,13 +77,23 @@ class PositionalEncoding(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
+            gen: Optional[torch.Generator], split_dim: Optional[int] = None,
+            axis=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate), in x's dtype; the identity when ``gen`` is
-    None (deterministic) or the rate is 0."""
+    None (deterministic) or the rate is 0. With ``axis``, ``x`` is this
+    rank's part of a tensor split along ``split_dim`` over it: the mask is
+    drawn at the full shape and this rank's part kept."""
     if gen is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    split = axis is not None and axis.size > 1
+    shape = list(x.shape)
+    if split:
+        shape[split_dim] *= axis.size
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    if split:
+        n = x.shape[split_dim]
+        keep = keep.narrow(split_dim, axis.index * n, n)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -76,10 +105,34 @@ def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
+def row_linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+               axis) -> torch.Tensor:
+    """A row-split linear: this rank's slice of the input features times
+    its rows of the weight, all-reduced over ``axis``, then the
+    (replicated) bias."""
+    y = comm.reduce_from_model(F.linear(x.to(dtype), lin.weight.to(dtype)),
+                               axis)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def tp_linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+              axis) -> torch.Tensor:
+    """``linear``, or ``row_linear`` for a row-split ``lin`` (a column-split
+    one is ``linear`` on its slice; its input is copied to the axis by the
+    caller)."""
+    if axis is not None and getattr(lin, "tp_kind", None) == "row":
+        return row_linear(x, lin, dtype, axis)
+    return linear(x, lin, dtype)
+
+
 class FactorizedDense(nn.Module):
     """Rank-r bottleneck linear: x @ W_a (no bias) @ W_b (+ bias); ``r=None``
     is a single linear (``full``). Parameters f32, computed in ``dtype``
-    (mtl_tpu/models/layers.py:64-91)."""
+    (mtl_tpu/models/layers.py:64-91). Split over ``tp`` as the module
+    docstring says; a column-split one takes its input copied to the axis
+    already."""
+
+    tp = None
 
     def __init__(self, in_features: int, features: int,
                  r: Optional[int] = None, use_bias: bool = True,
@@ -94,7 +147,15 @@ class FactorizedDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.r is None:
-            return linear(x, self.full, self.dtype)
+            return tp_linear(x, self.full, self.dtype, self.tp)
+        kind = getattr(self.a, "tp_kind", None) if self.tp else None
+        if kind == "col":
+            h = comm.gather_from_model(linear(x, self.a, self.dtype), self.tp)
+            return linear(h, self.b, self.dtype)
+        if kind == "row":
+            h = F.linear(x.to(self.dtype), self.a.weight.to(self.dtype))
+            h = comm.reduce_scatter_to_model(h, self.tp)
+            return row_linear(h, self.b, self.dtype, self.tp)
         return linear(linear(x, self.a, self.dtype), self.b, self.dtype)
 
 
@@ -104,7 +165,10 @@ def _layer_norm(dim: int) -> nn.LayerNorm:
 
 
 class FeedForward(nn.Module):
-    """Post-LN residual FFN; optionally rank-r factorized linears."""
+    """Post-LN residual FFN; optionally rank-r factorized linears
+    (``linear_1`` column-, ``linear_2`` row-split over ``tp``)."""
+
+    tp = None
 
     def __init__(self, dim_model: int, dim_ff: int, dropout: float = 0.1,
                  factorized: bool = False, r: int = 100,
@@ -118,13 +182,17 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.linear_2(F.relu(self.linear_1(x.to(self.dtype))))
+        x_in = comm.copy_to_model(x.to(self.dtype), self.tp)
+        h = self.linear_2(F.relu(self.linear_1(x_in)))
         h = dropout(h, self.dropout, gen)
         return self.layer_norm(h.float() + x.float()).to(x.dtype)
 
 
 class MultiHeadAttention(nn.Module):
-    """Rank-r factorized multi-head attention with post-LN residual."""
+    """Rank-r factorized multi-head attention with post-LN residual (q, k,
+    v column-, the output row-split over ``tp``)."""
+
+    tp = None
 
     def __init__(self, num_heads: int, dim_model: int, dim_key: int,
                  dim_value: int, dropout: float = 0.1,
@@ -141,18 +209,26 @@ class MultiHeadAttention(nn.Module):
                                              dtype=dtype)
         self.layer_norm = _layer_norm(dim_model)
 
+    @property
+    def _straddles(self) -> bool:
+        """A head's columns span ranks of ``tp``."""
+        return self.tp is not None and self.num_heads % self.tp.size != 0
+
+    def _heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """[B, T, H_local * dim] -> [B, T, H_local, dim]: this rank's heads,
+        or under a straddling split every head (gathered)."""
+        if self._straddles:
+            x = comm.all_gather_last(x, self.tp)
+        return x.view(x.shape[0], x.shape[1], -1, dim)
+
     def _q_heads(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, _ = x.shape
-        return self.query_linear(x).view(b, t, self.num_heads, self.dim_key)
+        return self._heads(self.query_linear(x), self.dim_key)
 
     def project_kv(self, key: torch.Tensor, value: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Project K/V heads once (e.g. the cross-attention decode cache)."""
-        b, t, _ = key.shape
-        k = self.key_linear(key).view(b, t, self.num_heads, self.dim_key)
-        v = self.value_linear(value).view(b, t, self.num_heads,
-                                          self.dim_value)
-        return k, v
+        return (self._heads(self.key_linear(key), self.dim_key),
+                self._heads(self.value_linear(value), self.dim_value))
 
     def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: Optional[torch.Tensor],
@@ -165,13 +241,17 @@ class MultiHeadAttention(nn.Module):
         scores = scores / math.sqrt(self.dim_key)
         if mask is not None:
             scores = scores.masked_fill(mask[:, None], float("-inf"))
-        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen)
+        local = q.shape[2] < self.num_heads  # this rank's heads
+        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, gen,
+                       1, self.tp if local else None)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn.to(self.dtype).float(),
                            v.float()).to(self.dtype)
-        return ctx.reshape(b, t_q, self.num_heads * self.dim_value)
+        return ctx.reshape(b, t_q, q.shape[2] * self.dim_value)
 
     def _finish(self, ctx: torch.Tensor, residual: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self._straddles:
+            ctx = comm.scatter_to_model(ctx, self.tp)
         out = dropout(self.output_linear(ctx), self.dropout, gen)
         return self.layer_norm(out.float() + residual.float()).to(
             residual.dtype)
@@ -179,8 +259,12 @@ class MultiHeadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        k, v = self.project_kv(key, value)
-        ctx = self._attend(self._q_heads(query), k, v, mask, gen)
+        # one copy per distinct input: one all-reduce of its gradient
+        q_in = comm.copy_to_model(query, self.tp)
+        k_in = q_in if key is query else comm.copy_to_model(key, self.tp)
+        v_in = k_in if value is key else comm.copy_to_model(value, self.tp)
+        k, v = self.project_kv(k_in, v_in)
+        ctx = self._attend(self._q_heads(q_in), k, v, mask, gen)
         return self._finish(ctx, query, gen)
 
     def decode_step(self, query_t: torch.Tensor, cache_k: torch.Tensor,

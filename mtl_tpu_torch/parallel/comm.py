@@ -19,6 +19,30 @@ a ``create_graph`` backward (the second-order meta step) differentiates
 through it once more. Every rank of an axis must call the same
 collectives in the same order, forward and backward; the steps run one
 program on every rank, so they do.
+
+The tensor-parallel layers (``parallel/tp.py``, ``models/layers.py``) use
+Megatron's autograd-aware pairs over the ``model`` axis. Their loss is
+the same on every rank of the axis, so a tensor that every rank computes
+alike (replicated) carries the full gradient on every rank, and a tensor
+split over the axis carries the gradient of this rank's part:
+
+* ``copy_to_model``: forward the identity, backward the all-reduce (a
+  replicated input of a split layer collects each rank's part of its
+  gradient);
+* ``reduce_from_model``: forward the all-reduce of partial sums, backward
+  the identity;
+* ``gather_from_model``: forward the all-gather of the last dim, backward
+  the reduce-scatter (the consumer of the gathered tensor is a split
+  layer, whose gradient on each rank is a partial sum); ``all_gather_last``
+  is the same gather with the slice as its backward (its consumer computes
+  alike on every rank);
+* ``scatter_to_model``: forward this rank's slice of the last dim,
+  backward the all-gather; ``reduce_scatter_to_model`` is the reduce, then
+  the slice.
+
+Each backward calls its adjoint, so a ``create_graph`` backward
+differentiates it again. Their sums run in f32 for a 16-bit tensor, the
+result cast back.
 """
 
 from __future__ import annotations
@@ -146,3 +170,114 @@ def all_reduce_grad_list(tensors: Sequence[torch.Tensor], axis
     return [p.view_as(t) for p, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
+
+
+# -- the tensor-parallel pairs over the ``model`` axis ----------------------
+
+def _sum_f32(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of ``x`` over the axis as a new tensor of x's dtype, summed
+    in f32 for a 16-bit ``x``."""
+    wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    out = _sum_(wide.clone(memory_format=torch.contiguous_format), axis)
+    return out.to(x.dtype)
+
+
+def _gather_last(x: torch.Tensor, axis) -> torch.Tensor:
+    """[..., size * n]: every rank's [..., n] in axis order."""
+    buf = x.new_zeros((axis.size,) + tuple(x.shape),
+                      dtype=torch.float32 if x.dtype in (
+                          torch.bfloat16, torch.float16) else x.dtype)
+    buf[axis.index] = x
+    full = _sum_(buf, axis).to(x.dtype)
+    return full.movedim(0, -2).reshape(*x.shape[:-1], -1)
+
+
+def _slice_last(x: torch.Tensor, axis) -> torch.Tensor:
+    n = x.shape[-1] // axis.size
+    return x.narrow(-1, axis.index * n, n).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Reduce.apply(grad, ctx.axis), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _sum_f32(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Copy.apply(grad, ctx.axis), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _gather_last(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Scatter.apply(grad, ctx.axis), None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _slice_last(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Gather.apply(grad, ctx.axis), None
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` (replicated) as the input of a split layer: forward the
+    identity, backward the all-reduce."""
+    return x if axis is None or axis.size == 1 else _Copy.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum over the axis of partial sums: forward the all-reduce,
+    backward the identity."""
+    return x if axis is None or axis.size == 1 else _Reduce.apply(x, axis)
+
+
+def all_gather_last(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's part of the last dim, concatenated in axis order, for a
+    consumer that computes alike on every rank: backward this rank's
+    slice."""
+    return x if axis is None or axis.size == 1 else _Gather.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``all_gather_last`` for a consumer split over the axis: backward the
+    reduce-scatter (the sum of the ranks' partial gradients, then this
+    rank's slice)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _Copy.apply(_Gather.apply(x, axis), axis)
+
+
+def scatter_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's slice of the last dim of a replicated ``x``: backward
+    the all-gather."""
+    return x if axis is None or axis.size == 1 else _Scatter.apply(x, axis)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's slice of the last dim of the sum over the axis of
+    partial sums: backward the all-gather."""
+    if axis is None or axis.size == 1:
+        return x
+    return _Scatter.apply(_Reduce.apply(x, axis), axis)

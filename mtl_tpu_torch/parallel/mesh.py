@@ -13,8 +13,12 @@ broadcasts rank 0's, so every rank starts from one weight set) and a host
 batch is sliced ``[K over task, B over data, ...]`` (``shard_batch``). In
 JAX the collectives are XLA's; here ``parallel/comm.py`` holds them and the
 steps call them (train/steps.py). The ``model`` axis carries the
-sequence-parallel encode of ``parallel/sp.py``; tensor-parallel training
-over it is not ported.
+sequence-parallel encode of ``parallel/sp.py`` and tensor-parallel
+training (``parallel/tp.py``: after ``replicate_state`` each rank keeps its
+slice of the split weights). ``plane`` is the (task, data) plane of this
+rank's ``model`` coordinate: the ranks that hold the same slices and see
+other parts of the batch, over which the steps sum what ``world`` sums
+without a ``model`` axis (the same group when ``model`` is 1).
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ class Axis:
 class Mesh:
     """This rank's view of the mesh: ``shape`` by axis name, its global
     ``rank`` and coordinates, its ``device`` and the process group's
-    ``backend``, and one ``Axis`` per name of ``AXES`` plus ``world``."""
+    ``backend``, and one ``Axis`` per name of ``AXES`` plus ``plane`` and
+    ``world``."""
 
     shape: Dict[str, int]
     rank: int
@@ -73,6 +78,10 @@ class Mesh:
     @property
     def model(self) -> Axis:
         return self.axes["model"]
+
+    @property
+    def plane(self) -> Axis:
+        return self.axes["plane"]
 
     @property
     def world(self) -> Axis:
@@ -110,8 +119,8 @@ def make_mesh(shape: Sequence[int], device: torch.device,
     """This rank's ``Mesh`` in the initialized default process group, over
     all its ranks or over the global ranks ``members`` (mesh rank i is
     ``members[i]``; None on a rank outside them). Every rank of the process
-    group creates every subgroup, in one order, as ``dist.new_group``
-    requires."""
+    group creates every subgroup (the axes, the whole mesh, the planes), in
+    one order, as ``dist.new_group`` requires."""
     shape = tuple(int(s) for s in shape)
     world = dist.get_world_size()
     members = list(range(world)) if members is None else list(members)
@@ -133,6 +142,15 @@ def make_mesh(shape: Sequence[int], device: torch.device,
                                   group)
     whole = (dist.group.WORLD if len(members) == world
              else dist.new_group(members))
+    for m in range(shape[2]):
+        ranks = [int(r) for r in grid[:, :, m].reshape(-1)]
+        if shape[2] == 1:
+            group = whole
+        else:
+            group = dist.new_group(ranks) if len(ranks) > 1 else None
+        if me in ranks:
+            axes["plane"] = Axis("plane", len(ranks), ranks.index(me), ranks,
+                                 group)
     if me not in members:
         return None
     rank = members.index(me)
@@ -211,5 +229,6 @@ def _state_tensors(model: torch.nn.Module, state) -> List[torch.Tensor]:
 
 def replicate_state(model: torch.nn.Module, state, mesh: Mesh) -> None:
     """Broadcasts rank 0's weights, buffers and optimizer state to every
-    rank, in place (the replicated placement of the JAX package)."""
+    rank, in place (the replicated placement of the JAX package), before
+    ``parallel/tp.py`` slices any of them."""
     comm.broadcast_(_state_tensors(model, state), mesh.world)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..parallel import comm
 
 
 @dataclass
@@ -233,7 +234,17 @@ def make_epoch_optimizer(cfg: Config) -> Union[NoamAdam, SGD]:
                     cfg.train.min_lr)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: List[torch.Tensor],
+                split: Optional[List[bool]] = None, axis=None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    With ``axis`` (a sharded model's, parallel/tp.py), the tensors that
+    ``split`` flags are this rank's slices of tensors split over it: their
+    squares are summed over the axis, the replicated ones counted once."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if axis is None:
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(split, device=norms.device)
+    squares = norms.square()
+    return (comm.all_reduce(squares[mask].sum(), axis)
+            + squares[~mask].sum()).sqrt()

@@ -74,6 +74,19 @@ step (``parallel/comm.py``):
   ``task`` rank, ``--device-cer``'s counts are summed over the ranks, and
   the hyps and golds and the reported losses are the global batch's on
   every rank, so that rank 0 logs the single-process run's lines.
+
+With a ``model`` axis the sums over the ranks run over the ``plane``
+(the ranks of this rank's model coordinate), which every rank of the axis
+does alike. A model sharded over the axis (``parallel/tp.py``) holds this
+rank's slices of its split parameters: their gradients are the slices'
+own, a replicated parameter's is the same on every rank of the axis, and
+the global-norm clips (inner, differentiable under ``--second-order``, and
+outer) sum the split tensors' squares over the axis (``_clip_tree``). A
+model with a discriminator head stays replicated over the axis, as in the
+JAX package. Before the update the replicated leaves' gradients are model
+rank 0's on every rank of the axis (``_agree_over_model``), so that they
+stay bitwise one value where the card's kernels round alike computations
+otherwise.
 """
 
 from __future__ import annotations
@@ -252,7 +265,7 @@ def _device_cer_metrics(hyp: torch.Tensor, gold: torch.Tensor,
     on a mesh of this rank's slice, summed over the ranks."""
     d, c = device_cer(hyp.flatten(0, 1), gold.flatten(0, 1), space_id)
     if mesh is not None:
-        d, c = comm.all_reduce_list([d, c], mesh.world)
+        d, c = comm.all_reduce_list([d, c], mesh.plane)
     return {"cer_dist": d, "cer_chars": c}
 
 
@@ -266,7 +279,7 @@ def _gather_tasks(x: torch.Tensor, mesh) -> torch.Tensor:
     full = x.new_zeros((kl * mesh.task.size, bl * mesh.data.size)
                        + tuple(x.shape[2:]))
     full[t * kl:(t + 1) * kl, d * bl:(d + 1) * bl] = x
-    return comm.all_reduce(full, mesh.world)
+    return comm.all_reduce(full, mesh.plane)
 
 
 def _task_mean(values: List[torch.Tensor], mesh, k: int) -> torch.Tensor:
@@ -279,23 +292,64 @@ def _task_mean(values: List[torch.Tensor], mesh, k: int) -> torch.Tensor:
 
 
 def _global(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum over the ranks of this rank's part of a reported value."""
-    return x if mesh is None else comm.all_reduce(x, mesh.world)
+    """The sum over the plane's ranks of this rank's part of a reported
+    value."""
+    return x if mesh is None else comm.all_reduce(x, mesh.plane)
+
+
+def tp_split(model: torch.nn.Module, names: List[str]):
+    """(axis, which of ``names`` are split over it) of a model sharded by
+    ``parallel/tp.py``; None for a model that is not."""
+    axis = getattr(model, "tp_axis", None)
+    if axis is None:
+        return None
+    return axis, [n in model.tp_layout for n in names]
+
+
+def _agree_over_model(grads: List[torch.Tensor], tp, mesh) -> None:
+    """Overwrites, in place, the gradients of the leaves replicated over
+    the mesh's ``model`` axis (all of them when the model is not sharded)
+    with model rank 0's. Every rank of the axis computes them alike, but a
+    card's kernels (cuDNN's weight gradients, atomic sums) may round them
+    otherwise from one process to the next, and a replicated leaf must
+    stay one value on every rank."""
+    if mesh is None or mesh.model.size == 1:
+        return
+    split = tp[1] if tp is not None else []
+    comm.broadcast_([g for i, g in enumerate(grads)
+                     if i >= len(split) or not split[i]], mesh.model)
 
 
 def _clip_tree(grads: List[torch.Tensor], max_norm: float,
-               differentiable: bool = False) -> List[torch.Tensor]:
+               differentiable: bool = False, tp=None) -> List[torch.Tensor]:
     """Scale by min(1, max_norm / (global norm + 1e-6))
     (mtl_tpu/train/steps.py:161-164). ``differentiable`` computes the same
     values per tensor, with ops that autograd differentiates again (the
     second-order inner clip), as optax.global_norm does: the square root
-    of the sum of every tensor's sum of squares."""
+    of the sum of every tensor's sum of squares. ``tp`` (``tp_split``'s)
+    takes the norm of the full tensors over the model axis: the split
+    slices' squares reduced over it (differentiably, and their scale copied
+    to the axis, so that the backward collects every rank's part)."""
+    axis, split = tp if tp is not None else (None, None)
     if not differentiable:
-        scale = (max_norm / (global_norm(grads) + 1e-6)).clamp(max=1.0)
+        norm = global_norm(grads, split, axis)
+        scale = (max_norm / (norm + 1e-6)).clamp(max=1.0)
         return torch._foreach_mul(grads, scale)
-    norm = torch.sqrt(torch.stack([(g * g).sum() for g in grads]).sum())
+    squares = [(g * g).sum() for g in grads]
+    if axis is None:
+        norm = torch.sqrt(torch.stack(squares).sum())
+    else:
+        mine = [q for q, s in zip(squares, split) if s]
+        rest = [q for q, s in zip(squares, split) if not s]
+        total = comm.reduce_from_model(torch.stack(mine).sum(), axis)
+        if rest:
+            total = total + torch.stack(rest).sum()
+        norm = torch.sqrt(total)
     scale = (max_norm / (norm + 1e-6)).clamp(max=1.0)
-    return [g * scale for g in grads]
+    if axis is None:
+        return [g * scale for g in grads]
+    split_scale = comm.copy_to_model(scale, axis)
+    return [g * (split_scale if s else scale) for g, s in zip(grads, split)]
 
 
 def _task_batch(batches: Dict[str, torch.Tensor], i: int):
@@ -330,6 +384,7 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
              generator: Optional[torch.Generator] = None, beta: float = 0.5):
         names = list(state.params)
         params = [state.params[n] for n in names]
+        tp = tp_split(model, names)
         ces, terms, auxes, stats = [], [], [], []
         k_local = batches["targets"].shape[0]
         k = k_local * (1 if mesh is None else mesh.task.size)
@@ -350,10 +405,11 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
         d_params = [] if head is None else head.params(state)
         grads = list(torch.autograd.grad(loss, params + d_params))
         if mesh is not None:
-            grads = comm.all_reduce_list(grads, mesh.world)
+            grads = comm.all_reduce_list(grads, mesh.plane)
+            _agree_over_model(grads, tp, mesh)
         grads, d_grads = grads[:len(params)], grads[len(params):]
         if clip:
-            grads = _clip_tree(grads, max_norm)
+            grads = _clip_tree(grads, max_norm, tp=tp)
         optimizer.update(dict(zip(names, grads)), state.opt_state,
                          state.params)
         _merge_batch_stats(model, stats, mesh)
@@ -413,7 +469,8 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
     if head is not None:
         head.on_mesh(mesh)
 
-    def second_order_task(names, params, s_loss, q, generator, stats_out):
+    def second_order_task(names, params, s_loss, q, generator, stats_out,
+                          tp):
         """(query loss, its aux, its gradient at p) of ``task_outer_loss``:
         the gradient flows through the inner SGD step (and, on a mesh,
         through the all-reduce of the support gradient over ``data``). The
@@ -422,7 +479,7 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
         if mesh is not None:
             g = comm.all_reduce_grad_list(g, mesh.data)
         if clip:
-            g = _clip_tree(g, max_norm, differentiable=True)
+            g = _clip_tree(g, max_norm, differentiable=True, tp=tp)
         adapted = [p - inner_lr * gi for p, gi in zip(params, g)]
         q_loss, aux_q = forward(dict(zip(names, adapted)), q, generator,
                                 False, stats_out=stats_out)
@@ -437,6 +494,7 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
     def run(state, support, query, generator, beta):
         names = list(state.params)
         params = [state.params[n] for n in names]
+        tp = tp_split(model, names)
         d_params = [] if head is None else head.params(state)
         if not per_task_query:  # the shared query's features, once
             feats, lengths = prepare_features(query, cfg)
@@ -457,13 +515,13 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             stats.append([])
             if second_order:
                 q_loss, aux_q, gq = second_order_task(
-                    names, params, s_loss, q, generator, stats[-1])
+                    names, params, s_loss, q, generator, stats[-1], tp)
             else:
                 g = list(torch.autograd.grad(s_loss, params))
                 if mesh is not None:
                     g = comm.all_reduce_list(g, mesh.data)
                 if clip:
-                    g = _clip_tree(g, max_norm)
+                    g = _clip_tree(g, max_norm, tp=tp)
                 with torch.no_grad():
                     adapted = list(torch._foreach_add(params, g,
                                                       alpha=-inner_lr))
@@ -490,11 +548,12 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             q_aux.append(aux_q)
             del s_loss, q_loss  # the task's graph, before the next task
         if mesh is not None:
-            gsum = comm.all_reduce_list(gsum, mesh.world)
+            gsum = comm.all_reduce_list(gsum, mesh.plane)
+            _agree_over_model(gsum, tp, mesh)
         torch._foreach_div_(gsum, k)
         gsum, dsum = gsum[:len(params)], gsum[len(params):]
         if clip:
-            gsum = _clip_tree(gsum, max_norm)
+            gsum = _clip_tree(gsum, max_norm, tp=tp)
         outer_optimizer.update(dict(zip(names, gsum)), state.opt_state,
                                state.params)
         _merge_batch_stats(model, stats, mesh)
@@ -531,7 +590,7 @@ def _support_losses(s_losses: List[torch.Tensor], mesh, first: int,
         return torch.stack(s_losses)
     full = s_losses[0].new_zeros(k)
     full[first:first + len(s_losses)] = torch.stack(s_losses)
-    return comm.all_reduce(full, mesh.world)
+    return comm.all_reduce(full, mesh.plane)
 
 
 def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:

@@ -16,9 +16,11 @@ discriminator's optimizer is plain SGD at ``lr_disc`` under ``--opt_name
 sgd`` (no momentum), else Adam at ``lr_disc`` (:74-76).
 
 On a mesh the discriminator is replicated like the model (never sharded,
-as mtl_tpu/train/trainer.py:633-637 keeps it): its gradients are reduced
-with the model's, and its batch means are this rank's share of the global
-batch's (equal shards over ``data``).
+as mtl_tpu/train/trainer.py:633-637 keeps it; with a ``model`` axis the
+model stays replicated too, and every rank of the axis runs the same
+step): its gradients are reduced with the model's over the plane, and its
+batch means are this rank's share of the global batch's (equal shards over
+``data``).
 """
 
 from __future__ import annotations
@@ -106,7 +108,7 @@ class DiscHead:
                     for i, name in ((1, "disc_loss"), (2, "enc_loss"))}
         sums = comm.all_reduce_list(
             [torch.stack([t[i] for t in terms]).sum().detach()
-             for i in (1, 2)], self.mesh.world)
+             for i in (1, 2)], self.mesh.plane)
         return {"disc_loss": sums[0] / k, "enc_loss": sums[1] / k}
 
 

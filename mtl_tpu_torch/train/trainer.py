@@ -45,8 +45,20 @@ which holds full tensors, and ``replicate_state`` then makes rank 0's
 weights everyone's. A decision that ends or skips an iteration is taken
 for all ranks at once: the early stop is rank 0's, broadcast; a batch that
 fails to load on any rank is dropped on every rank. Each rank draws its
-dropout from its own generator, seeded from the run's seed and its rank.
-Tensor-parallel training (``--mesh-model > 1``) is not ported.
+dropout from its own generator, seeded from the run's seed and its place
+in the (task, data) plane.
+
+With ``--mesh-model M`` (tensor parallel, ``parallel/tp.py``; not with a
+discriminator head, which keeps the model replicated over the axis as the
+JAX package does) the state is built and replicated as above, the mesh's
+refusals are raised, and then each rank keeps its slice of the split
+parameters and of their optimizer moments. The M ranks of one (task,
+data) place run the same step on the same batch slice with the same
+dropout generator, so a split activation's masks are those of the M = 1
+mesh. Evaluation, the train CER and MAML's meta-test run the sharded
+forward on the M ranks of rank 0's place; checkpoints hold full tensors,
+gathered there and written by rank 0, so that one process serves or
+resumes them, and a resume on a mesh slices them again.
 """
 
 from __future__ import annotations
@@ -66,7 +78,7 @@ from ..data.dataset import SpectrogramDataset
 from ..data.vocab import Vocab, post_process
 from ..models.discriminator import Discriminator
 from ..models.transformer import init_weights
-from ..parallel import comm
+from ..parallel import comm, tp
 from ..parallel.mesh import (replicate_state, shard_batch,
                              shard_batch_prefix, validate_mesh_divisibility)
 from ..utils.checkpoint import load_checkpoint, load_train_state, \
@@ -79,7 +91,7 @@ from .optim import (make_epoch_optimizer, make_joint_optimizer,
                     make_meta_optimizers, opt_state_fits, restore_opt_state)
 from .steps import (TrainState, _clip_tree, batch_to_device,
                     init_train_state, make_eval_step, make_forward_fn,
-                    make_joint_step, make_meta_step)
+                    make_joint_step, make_meta_step, tp_split)
 from .steps_disc import (init_disc_state, make_joint_step_disc,
                          make_meta_step_disc)
 
@@ -209,15 +221,6 @@ class EarlyStopper:
         return self.count >= self.patience
 
 
-def check_ported(cfg: Config) -> None:
-    """Raises for the training options the port does not have yet."""
-    missing = [flag for flag, on in (
-        ("--mesh-model > 1 (tensor-parallel training)", cfg.mesh.model > 1),
-    ) if on]
-    if missing:
-        raise ValueError(f"{', '.join(missing)}: not ported yet")
-
-
 def check_mesh(cfg: Config, shape, num_tasks: int, kind: str) -> None:
     """The JAX trainers' refusals of a mesh ``shape`` (task, data, ...):
     ``kind`` "meta" (a meta trainer without a discriminator head,
@@ -247,10 +250,11 @@ def check_mesh(cfg: Config, shape, num_tasks: int, kind: str) -> None:
 def rank_generator(device: torch.device, seed: int, mesh=None
                    ) -> torch.Generator:
     """The dropout generator of a run: seeded from the run's seed, and on
-    a mesh from the rank too (rank 0 keeps the run's seed)."""
-    rank = 0 if mesh is None else mesh.rank
+    a mesh from the rank's place in the (task, data) plane too (rank 0
+    keeps the run's seed; the ranks of one ``model`` group draw alike)."""
+    place = 0 if mesh is None else mesh.plane.index
     return torch.Generator(device).manual_seed(
-        (seed + 1_000_003 * rank) % (2 ** 63))
+        (seed + 1_000_003 * place) % (2 ** 63))
 
 
 class TrainerBase:
@@ -265,7 +269,6 @@ class TrainerBase:
         """``discriminator`` (on ``device``) turns on the adversarial or
         multitask head, as ``cfg.train.adversarial`` says; ``mesh``
         (``parallel/mesh.py``, None: one process) is this rank's."""
-        check_ported(cfg)
         self.model = model
         self.discriminator = discriminator
         self.cfg = cfg
@@ -273,6 +276,13 @@ class TrainerBase:
         self.device = device
         self.mesh = mesh
         self.is_root = mesh is None or mesh.is_root
+        # tensor parallel: the model's split over the mesh's model axis
+        self.sharded = (mesh is not None and mesh.model.size > 1
+                        and discriminator is None)
+        # the ranks that evaluate and write checkpoints: rank 0, and under
+        # tensor parallel the other ranks of its model group
+        self.evaluates = mesh is None or (
+            mesh.plane.index == 0 if self.sharded else mesh.is_root)
         self.space_id = vocab.label2id.get(" ")
         self.eval_step = make_eval_step(model, cfg)
         if mesh is not None:
@@ -401,6 +411,13 @@ class TrainerBase:
             replicate_state(self.model, state, self.mesh)
         return state
 
+    def _place_state(self, state: TrainState) -> TrainState:
+        """After the mesh's refusals: under tensor parallel, this rank's
+        slices of the replicated state (``tp.shard_state``)."""
+        if self.sharded and getattr(self.model, "tp_axis", None) is None:
+            tp.shard_state(self.model, state, self.mesh.model)
+        return state
+
     def _restore(self, state: TrainState, saved: dict) -> bool:
         """Copies the step and optimizer state(s) of a training checkpoint
         into ``state`` when all of them fit, else nothing."""
@@ -430,15 +447,20 @@ class TrainerBase:
         """``model.pt`` holds the ASR weights alone, so ``test_main``
         serves any training checkpoint; the optimizer state (at
         ``train_step``, default ``step``) and the discriminator go beside
-        it."""
+        it. Under tensor parallel the evaluating ranks gather the full
+        tensors together and rank 0 writes them."""
+        if not self.evaluates:
+            return
+        state_dict = tp.full_state_dict(self.model)
+        opt_state = tp.full_opt_state(state.opt_state, self.model)
         if not self.is_root:
             return
         disc = None
         if self.discriminator is not None:
             disc = (state.disc_params, state.disc_opt_state)
-        save_checkpoint(self.cfg, self.vocab, self.model.state_dict(), step,
+        save_checkpoint(self.cfg, self.vocab, state_dict, step,
                         metrics, best_model=best_model,
-                        opt_state=state.opt_state, disc=disc,
+                        opt_state=opt_state, disc=disc,
                         train_step=train_step)
 
     def train(self, train_dataset: SpectrogramDataset,
@@ -455,6 +477,7 @@ class TrainerBase:
         if self.mesh is not None:
             check_mesh(cfg, [self.mesh.shape[a] for a in ("task", "data")],
                        len(train_dataset.ids_list), self.mesh_kind)
+            state = self._place_state(state)
         generator = rank_generator(self.device, cfg.train.seed, self.mesh)
 
         # the prefetch starts after the initial draw: two threads drawing
@@ -542,7 +565,7 @@ class TrainerBase:
 
             if (it + 1) % cfg.train.evaluate_every == 0:
                 stop = False
-                if self.is_root:
+                if self.evaluates:
                     stop = self._evaluate_and_save(state, valid_sets, it,
                                                    stopper, history)
                 if self._stop_all(stop):
@@ -686,7 +709,8 @@ def make_adapt_fn(model: torch.nn.Module, cfg: Config):
         with strict_f32():
             g = list(torch.autograd.grad(loss, [params[n] for n in names]))
         if cfg.train.clip:
-            g = _clip_tree(g, cfg.train.max_norm)
+            g = _clip_tree(g, cfg.train.max_norm,
+                           tp=tp_split(model, names))
         with torch.no_grad():
             return dict(zip(names, torch._foreach_add(
                 [params[n] for n in names], g, alpha=-cfg.train.lr)))
@@ -790,6 +814,7 @@ class EpochTrainer(TrainerBase):
         if self.mesh is not None:
             check_mesh(cfg, [self.mesh.shape[a] for a in ("task", "data")],
                        len(train_dataset.ids_list), self.mesh_kind)
+            state = self._place_state(state)
         for epoch in range(start_epoch, num_epochs):
             total_loss, total_cer, total_char, n = 0.0, 0, 0, 0
             failures = 0
@@ -821,7 +846,7 @@ class EpochTrainer(TrainerBase):
                 epoch, total_loss / max(n, 1),
                 total_cer * 100.0 / max(total_char, 1)))
             stop = False
-            if self.is_root:
+            if self.evaluates:
                 avg_loss, avg_cer, _, _ = self.evaluate(valid_sets, epoch)
                 # the optimizer's step count rides along: an epoch is many
                 self._save(state, epoch + 1, {"avg_valid_loss": avg_loss,

@@ -12,7 +12,9 @@ from training, ``train_state.pt``: the step and the optimizer's fields
 (Adam: count, mu, nu; Noam Adam: those and schedule_count; SGD with
 momentum: trace; SGD without: none) and, from a run with a discriminator
 head, ``disc``: its parameters (``params``, by name) and its optimizer's
-fields. The discriminator stays out of ``model.pt``.
+fields. The discriminator stays out of ``model.pt``. Every tensor is
+whole: a tensor-parallel run (``parallel/tp.py``) gathers its slices
+before it saves and cuts them again after it loads.
 """
 
 from __future__ import annotations

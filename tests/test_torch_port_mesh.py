@@ -29,7 +29,10 @@ gradient by the conv's rounding, ROADMAP C, and the trajectories would part
 by ~1e-3) print the JAX single-device run's TRAIN / AVG VALID losses
 within rtol 2e-4, atol 1e-4, as tests/test_trainer_mesh.py holds the JAX
 mesh; a mesh checkpoint resumes single-process and a single-process one
-on the mesh; the refusals raise before any rank starts.
+on the mesh; the refusals raise before any rank starts (among them a
+``--mesh-model`` that does not divide the split weights' dims: at the
+CLI's default width r 100 is not divisible by 3). The tensor-parallel
+steps and CLIs are tests/test_torch_port_tp.py's.
 """
 
 import json
@@ -299,80 +302,88 @@ def _call(main, argv):
     return buf.getvalue(), state
 
 
-@pytest.fixture(scope="module")
-def cli(tmp_path_factory):
-    """One step-0 JAX state saved by both packages (Adam and Noam Adam
-    optimizer states), then each entry point's JAX single-device run and
-    the port's mesh run from it: {name: (JAX output, port output)}, plus
-    the argv and the models folder."""
-    from mtl_tpu.cli import asr as jax_cli
+def cli_setup(tmp):
+    """A synthetic corpus of 2 tasks under ``tmp`` and one step-0 JAX
+    state saved by both packages (Adam and Noam Adam optimizer states):
+    (the argv of the iteration trainers, the epoch trainer's, {optimizer:
+    (JAX checkpoint, port checkpoint)})."""
     from mtl_tpu.data.vocab import Vocab as JaxVocab
     from mtl_tpu.train.optim import make_epoch_optimizer
     from mtl_tpu.utils.checkpoint import save_checkpoint as jax_save
-    from mtl_tpu_torch.cli import asr
     from mtl_tpu_torch.data.vocab import Vocab
     from mtl_tpu_torch.interop import (adam_state_from_optax,
                                        noam_state_from_optax)
     from mtl_tpu_torch.utils.checkpoint import save_checkpoint
 
+    manifests, labels = make_synthetic_corpus(
+        str(tmp / "corpus"), num_tasks=2, utts_per_task=8, max_sec=0.5,
+        max_chars=6, seed=5)
+    jcfg = JaxConfig()
+    m = jcfg.model
+    m.num_enc_layers, m.num_dec_layers, m.num_heads = 1, 1, 2
+    m.dim_model = m.dim_emb = m.dim_inner = 16
+    m.dim_key = m.dim_value = 8
+    m.r, m.dtype, m.dropout = 4, "float32", 0.0
+    m.src_max_len, m.tgt_max_len = 64, 32
+    m.feat_extractor = "none"
+    t = jcfg.train
+    t.k_train = t.k_valid = 4
+    t.lr, t.meta_lr, t.warmup = 0.01, 0.001, 4
+    t.evaluate_every = t.save_every = 2
+    t.early_stop = "loss,5"
+    jcfg.data.train_manifest_list, jcfg.data.labels_path = \
+        manifests, labels
+    jcfg.data.src_bucket_frames, jcfg.data.tgt_bucket_len = (64,), (16,)
+    jcfg.data.batch_size = 4
+    jcfg.save_folder = str(tmp / "models")
+    jcfg.finalize()
+    jvocab = JaxVocab.from_json(labels)
+    vocab = Vocab.from_dict(jvocab.to_dict())
+    jmodel = jax_build_model(jcfg, len(jvocab))
+    params = jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(3),
+        jnp.zeros((1, 32, jcfg.audio.num_freq), jnp.float32),
+        jnp.array([32], jnp.int32), jnp.zeros((1, 4), jnp.int32)))
+    paths = {}
+    for opt_name, tx in (("adam", optax.adam(t.meta_lr)),
+                         ("noam", make_epoch_optimizer(jcfg))):
+        st = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           opt_state=tx.init(params))
+        state = jax.tree.map(np.asarray, st.opt_state)
+        port_state = (noam_state_from_optax(state) if opt_name == "noam"
+                      else adam_state_from_optax(
+                          state[0].mu, state[0].nu, state[0].count))
+        jcfg.name = f"init_{opt_name}"
+        pcfg = Config.from_dict(json.loads(jcfg.to_json()))
+        pcfg.name = f"init_{opt_name}_port"
+        paths[opt_name] = (
+            jax_save(jcfg, jvocab, st, 0),
+            save_checkpoint(pcfg, vocab, flax_params_to_torch(params), 0,
+                            opt_state=port_state))
+    common = ["--train-manifest-list", *manifests,
+              "--valid-manifest-list", manifests[-1],
+              "--labels-path", labels, "--src-buckets", "64",
+              "--tgt-buckets", "16", "--epochs", "4"]
+    epoch = ["--train-manifest-list", manifests[0],
+             "--valid-manifest-list", manifests[1],
+             "--labels-path", labels, "--src-buckets", "64",
+             "--tgt-buckets", "16", "--batch-size", "4", "--epochs", "2"]
+    return common, epoch, paths
+
+
+@pytest.fixture(scope="module")
+def cli(tmp_path_factory):
+    """``cli_setup``'s corpus and checkpoints, then each entry point's JAX
+    single-device run and the port's mesh run from them: {name: (JAX
+    output, port output)}, plus the argv and the models folder."""
+    from mtl_tpu.cli import asr as jax_cli
+    from mtl_tpu_torch.cli import asr
+
     tmp = tmp_path_factory.mktemp("mesh_cli")
     old = os.getcwd()
     os.chdir(tmp)  # the CLIs write log/<name>.log
     try:
-        manifests, labels = make_synthetic_corpus(
-            str(tmp / "corpus"), num_tasks=2, utts_per_task=8, max_sec=0.5,
-            max_chars=6, seed=5)
-        jcfg = JaxConfig()
-        m = jcfg.model
-        m.num_enc_layers, m.num_dec_layers, m.num_heads = 1, 1, 2
-        m.dim_model = m.dim_emb = m.dim_inner = 16
-        m.dim_key = m.dim_value = 8
-        m.r, m.dtype, m.dropout = 4, "float32", 0.0
-        m.src_max_len, m.tgt_max_len = 64, 32
-        m.feat_extractor = "none"
-        t = jcfg.train
-        t.k_train = t.k_valid = 4
-        t.lr, t.meta_lr, t.warmup = 0.01, 0.001, 4
-        t.evaluate_every = t.save_every = 2
-        t.early_stop = "loss,5"
-        jcfg.data.train_manifest_list, jcfg.data.labels_path = \
-            manifests, labels
-        jcfg.data.src_bucket_frames, jcfg.data.tgt_bucket_len = (64,), (16,)
-        jcfg.data.batch_size = 4
-        jcfg.save_folder = str(tmp / "models")
-        jcfg.finalize()
-        jvocab = JaxVocab.from_json(labels)
-        vocab = Vocab.from_dict(jvocab.to_dict())
-        jmodel = jax_build_model(jcfg, len(jvocab))
-        params = jax.tree.map(np.asarray, jmodel.init(
-            jax.random.PRNGKey(3),
-            jnp.zeros((1, 32, jcfg.audio.num_freq), jnp.float32),
-            jnp.array([32], jnp.int32), jnp.zeros((1, 4), jnp.int32)))
-        paths = {}
-        for opt_name, tx in (("adam", optax.adam(t.meta_lr)),
-                             ("noam", make_epoch_optimizer(jcfg))):
-            st = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
-                               opt_state=tx.init(params))
-            state = jax.tree.map(np.asarray, st.opt_state)
-            port_state = (noam_state_from_optax(state) if opt_name == "noam"
-                          else adam_state_from_optax(
-                              state[0].mu, state[0].nu, state[0].count))
-            jcfg.name = f"init_{opt_name}"
-            pcfg = Config.from_dict(json.loads(jcfg.to_json()))
-            pcfg.name = f"init_{opt_name}_port"
-            paths[opt_name] = (
-                jax_save(jcfg, jvocab, st, 0),
-                save_checkpoint(pcfg, vocab, flax_params_to_torch(params), 0,
-                                opt_state=port_state))
-        common = ["--train-manifest-list", *manifests,
-                  "--valid-manifest-list", manifests[-1],
-                  "--labels-path", labels, "--src-buckets", "64",
-                  "--tgt-buckets", "16", "--epochs", "4"]
-        epoch = ["--train-manifest-list", manifests[0],
-                 "--valid-manifest-list", manifests[1],
-                 "--labels-path", labels, "--src-buckets", "64",
-                 "--tgt-buckets", "16", "--batch-size", "4", "--epochs",
-                 "2"]
+        common, epoch, paths = cli_setup(tmp)
         runs = {}
         for name, jmain, main, argv, opt, mesh in (
                 ("meta_transfer", jax_cli.meta_transfer_train_main,
@@ -453,7 +464,7 @@ def test_mesh_checkpoints_resume_across_process_counts(cli, tmp_path,
      "--scan-tasks serializes the task axis"),
     ("train_main", ["--mesh-task", "2"], "shards over --mesh-data only"),
     ("train_main", ["--mesh-data", "3"], "must divide --batch-size"),
-    ("joint_train_main", ["--mesh-model", "2"], "not ported yet"),
+    ("joint_train_main", ["--mesh-model", "3"], "should be divisible by 3"),
 ], ids=["k_train", "manifests", "scan_tasks", "epoch_task", "epoch_batch",
         "mesh_model"])
 def test_mesh_refusals_raise_before_any_rank(cli, main, flags, match):

@@ -743,36 +743,32 @@ def test_early_stopper_parity():
             assert (a.count, a.should_stop) == (b.count, b.should_stop)
 
 
-@pytest.mark.parametrize("flag,value", [("mesh.model", 2)])
-def test_unported_training_options_raise(flag, value):
-    from mtl_tpu_torch.train.trainer import check_ported
-
-    cfg = Config()
-    group, name = flag.split(".")
-    setattr(getattr(cfg, group), name, value)
-    with pytest.raises(ValueError, match="not ported yet"):
-        check_ported(cfg)
-    check_ported(Config())
-
-
 @pytest.mark.parametrize("flag,value", [
     ("train.prefetch_workers", 2), ("train.device_cer", True),
     ("train.profile_dir", "/x"), ("train.second_order", True),
     ("model.remat", True), ("model.remat_conv", True),
-    ("mesh.data", 2), ("mesh.task", 2)])
+    ("mesh.data", 2), ("mesh.task", 2), ("mesh.model", 2)])
 def test_ported_training_options_are_accepted(flag, value):
     """The options refused until the training-options slice, the
-    second-order slice and the mesh slice are accepted now (their
-    behaviour: tests/test_torch_port_options.py,
-    test_torch_port_second_order.py, test_torch_port_conformer.py and
-    test_torch_port_mesh.py); tensor-parallel training (``--mesh-model``)
-    is still refused."""
-    from mtl_tpu_torch.train.trainer import check_ported
+    second-order slice, the mesh slice and the tensor-parallel slice
+    build a trainer now (their behaviour: tests/test_torch_port_options.py,
+    test_torch_port_second_order.py, test_torch_port_conformer.py,
+    test_torch_port_mesh.py and test_torch_port_tp.py)."""
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.train.trainer import TransientTrainer
+    from mtl_tpu_torch.data.vocab import Vocab
 
     cfg = Config()
+    m = cfg.model
+    m.num_enc_layers = m.num_dec_layers = 1
+    m.dim_model = m.dim_emb = m.dim_inner = 16
+    m.num_heads, m.dim_key, m.dim_value, m.r = 2, 8, 8, 4
     group, name = flag.split(".")
     setattr(getattr(cfg, group), name, value)
-    check_ported(cfg)
+    vocab = Vocab.from_dict({"labels": ["_", "a", "b"]})
+    trainer = TransientTrainer(build_model(cfg, len(vocab)), cfg, vocab,
+                               torch.device("cpu"))
+    assert trainer.cfg is cfg and trainer.evaluates
 
 
 def test_batch_cer_matches_jax(corpus):

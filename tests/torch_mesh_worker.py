@@ -7,6 +7,9 @@ and the others spawned; a spawned rank imports this module, which imports
 torch and the port alone (no JAX). A case is a plain dict (numpy arrays,
 a config as JSON) so that it pickles to the spawned ranks; each case runs
 on a sub-mesh of the group's first ranks, and rank 0 returns the results.
+A step case on a mesh with a ``model`` axis shards the model over it
+(``parallel/tp.py``) unless it has a discriminator head; its gradients and
+params come back gathered to full tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from mtl_tpu_torch.models.discriminator import Discriminator
 from mtl_tpu_torch.models.subsampler import subsampled_length
 from mtl_tpu_torch.models.transformer import build_model
 from mtl_tpu_torch.ops import native
-from mtl_tpu_torch.parallel import comm
+from mtl_tpu_torch.parallel import comm, tp
 from mtl_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from mtl_tpu_torch.parallel.sp import (encode_sp, gather_encoder_output,
                                        time_slices)
@@ -50,10 +53,12 @@ def _numpy(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().float().cpu().numpy() for k, v in tensors.items()}
 
 
-def _same_on_every_rank(tensors: List[torch.Tensor], mesh) -> bool:
-    """True when every rank of ``mesh`` holds bitwise the same tensors."""
+def _same_on_every_rank(tensors: List[torch.Tensor], axis) -> bool:
+    """True when every rank of ``axis`` holds bitwise the same tensors."""
+    if not tensors:
+        return True
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    every = comm.all_gather(flat, mesh.world)
+    every = comm.all_gather(flat, axis)
     return bool((every == every[0]).all())
 
 
@@ -81,6 +86,12 @@ def _step_case(mesh, case: dict, device: torch.device) -> dict:
     meta = kind in ("meta", "maml")
     opt = RecordingAdam(cfg.train.meta_lr if meta else cfg.train.lr)
     state = init_train_state(model, opt)
+    layout = {}
+    if mesh.model.size > 1 and kind != "joint_disc":
+        tp.shard_state(model, state, mesh.model)
+        layout = model.tp_layout
+        shapes = {k: tuple(v.shape) for k, v in state.params.items()}
+        moments = {k: tuple(v.shape) for k, v in state.opt_state.mu.items()}
     disc = None
     if kind == "joint_disc":
         disc = Discriminator(cfg.model.dim_model, cfg.train.num_class)
@@ -109,15 +120,26 @@ def _step_case(mesh, case: dict, device: torch.device) -> dict:
                                 device)
         state, loss, m = step(state, batch, None, case.get("beta", 0.5))
         m = dict(m, loss=loss)
-    held = list(state.params.values()) + list(model.buffers())
+    replicated = [v for k, v in state.params.items() if k not in layout]
+    split = [v for k, v in state.params.items() if k in layout]
+    grads, params = opt.grads, state.params
+    if layout:
+        grads = tp.gather_tensors(grads, layout, mesh.model)
+        params = tp.gather_tensors(params, layout, mesh.model)
     out = {
         "metrics": _numpy({k: v for k, v in m.items()
                            if isinstance(v, torch.Tensor)}),
-        "grads": _numpy(opt.grads),
-        "params": _numpy(state.params),
+        "grads": _numpy(grads),
+        "params": _numpy(params),
         "buffers": _numpy(dict(model.named_buffers())),
-        "same_on_every_rank": _same_on_every_rank(held, mesh),
+        "same_on_every_rank": (
+            _same_on_every_rank(replicated + list(model.buffers()),
+                                mesh.world)
+            and _same_on_every_rank(split, mesh.plane)),
     }
+    if layout:
+        out["layout"] = {k: (v.dim, v.groups) for k, v in layout.items()}
+        out["local_shapes"], out["moment_shapes"] = shapes, moments
     if disc is not None:
         out["disc_params"] = _numpy(state.disc_params)
     return out
@@ -125,12 +147,12 @@ def _step_case(mesh, case: dict, device: torch.device) -> dict:
 
 def run_step_cases(mesh, cases: List[dict], device_name: str = "cpu"
                    ) -> Optional[List[dict]]:
-    """Every case on its sub-mesh (``case["shape"]``, (task, data)); rank
-    0 returns the results in order."""
+    """Every case on its sub-mesh (``case["shape"]``, (task, data) or
+    (task, data, model)); rank 0 returns the results in order."""
     device = mesh.device if device_name == "cuda" else torch.device("cpu")
     results = []
     for case in cases:
-        sub = sub_mesh(tuple(case["shape"]) + (1,), device)
+        sub = sub_mesh((tuple(case["shape"]) + (1,))[:3], device)
         results.append(None if sub is None else
                        _step_case(sub, case, device))
     return results if mesh.is_root else None
