@@ -1,24 +1,24 @@
-"""Where the time of one served batch goes, stage by stage.
+"""Where the time of one served batch goes, by the program's spans.
 
     python -m mtl_tpu_torch.cli.breakdown --continue-from CKPT \\
         --test-manifest-list M.csv --labels-path L.json --k-test 8
 
-Takes ``test_main``'s flags and checkpoint, and runs the stages of its loop
-one at a time on the first batch of the first test manifest: host read and
-collate, copy to the device, features (STFT kernel + normalize), VGG stack
-(both VGG kernels), encoder, cross-attention K/V, the greedy decode loop,
-and the host string cut. Each stage is ended by a device synchronize and
-timed on the host clock; the first pass warms up and the second is kept.
-On a CUDA device it then runs the features, the VGG stack and 20 decode
-steps under ``torch.profiler``: for the first two it prints each kernel's
-device time, for the decode steps the card's busy share (the profiler
-slows the host, so that share is a lower bound).
+Takes ``test_main``'s flags and checkpoint and serves the first batch of
+the first test manifest through the serving path: read and collate, copy
+to the device, features (STFT kernel + normalize), the VGG stack, the
+encoder, the cross-attention K/V, the greedy decode loop and the host
+string cut, each under its span (``utils/trace.py``). The first pass warms
+up. The second runs with the spans' totals on and prints each span's
+count, host ms and self ms; nothing is synchronized but what the program
+synchronizes itself, so the decode loop overlaps the device as it does
+when serving. On a CUDA device a third pass runs under ``torch.profiler``
+and prints each span's device ms, by kernel: a kernel counts under the
+innermost span the host was in when it launched it.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 
 import torch
 
@@ -27,15 +27,17 @@ from ..data.dataset import SpectrogramDataset
 from ..data.vocab import EOS_ID
 from ..decode.greedy import greedy_loop, ids_to_strings
 from ..train.steps import prepare_features
+from ..utils import trace
 from ..utils.checkpoint import load_checkpoint
 from .common import load_asr_model, resolve_device
 
-PROFILED_STEPS = 20
+TOP_KERNELS = 4
 
 
 def breakdown_main(argv=None):
-    """Returns the stage times in ms and the number of decode steps run."""
-    parser = build_parser("Stage times of one served batch (PyTorch port)")
+    """Returns the spans' totals of the second pass and the number of
+    decode steps the batch ran."""
+    parser = build_parser("Span times of one served batch (PyTorch port)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     device = resolve_device(cfg.device)
@@ -46,52 +48,106 @@ def breakdown_main(argv=None):
     ds = SpectrogramDataset(vocab, saved_cfg,
                             [cfg.data.test_manifest_list[0]], normalize=True)
     k_test = getattr(args, "k_test", None) or cfg.train.k_valid
-    max_steps = cfg.decode.max_steps
-    sync = (torch.cuda.synchronize if device.type == "cuda"
-            else (lambda: None))
-    ms = {}
 
-    def stage(name, fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        return out
+    def serve():
+        with trace.span("serve.read_collate"):
+            batch = next(ds.iter_batches(k_test, shuffle=False))
+        with trace.span("serve.to_device"):
+            inp = {k: torch.from_numpy(batch[k]).to(device)
+                   for k in ("audio", "audio_lengths")}
+        feats, lengths = prepare_features(inp, saved_cfg)
+        _, kvs = model.prepare_decode(feats, lengths)
+        ids = greedy_loop(model, kvs, feats.shape[0], device,
+                          cfg.decode.max_steps, vocab.SOS_ID)
+        with trace.span("serve.to_strings"):
+            ids = ids.cpu()
+            ids_to_strings(ids, vocab)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return feats, ids
 
     with torch.inference_mode():
-        for _ in range(2):
-            batch = stage("host_read_collate", lambda: next(
-                ds.iter_batches(k_test, shuffle=False)))
-            inp = stage("to_device", lambda: {
-                k: torch.from_numpy(batch[k]).to(device)
-                for k in ("audio", "audio_lengths")})
-            feats, lengths = stage(
-                "features", lambda: prepare_features(inp, saved_cfg))
-            frames = stage("vgg_stack", lambda: model.conv(feats))
-            enc = stage("encoder", lambda: model.encoder(frames, lengths))
-            kvs = stage("cross_kv",
-                        lambda: model.decoder.precompute_enc_kv(enc))
-            ids = stage("decode_loop", lambda: greedy_loop(
-                model, kvs, feats.shape[0], device, max_steps, vocab.SOS_ID))
-            stage("to_strings", lambda: ids_to_strings(ids.cpu(), vocab))
+        serve()
+        trace.reset()
+        trace.enable()
+        try:
+            feats, ids = serve()
+        finally:
+            trace.disable()
+        totals = trace.totals()
+        trace.reset()
         eos = ids == EOS_ID
         steps = int(torch.where(eos.any(1), eos.int().argmax(1) + 1,
                                 ids.shape[1]).max())
-        print(f"batch {tuple(feats.shape)}, {steps} decode steps; stage ms: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-              + f"; {ms['decode_loop'] / steps:.3f} ms/step", flush=True)
+        print(f"batch {tuple(feats.shape)}, {steps} decode steps; host ms "
+              f"by span:\n{trace.format_totals(totals)}", flush=True)
         if device.type == "cuda":
-            _profile_stage("features",
-                           lambda: prepare_features(inp, saved_cfg))
-            _profile_stage("vgg_stack", lambda: model.conv(feats))
-            _profile_decode(model, kvs, feats.shape[0], device, vocab.SOS_ID)
-    return ms, steps
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                serve()
+            print(_format_device(_device_ms_by_span(prof.events(), totals)),
+                  flush=True)
+    return totals, steps
 
 
-def _device_kernels(prof):
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+def _innermost(ranges, times):
+    """For each of the sorted ``times``, the name of the innermost of the
+    properly nested ``ranges`` [(start, end, name)] that holds it, or
+    None."""
+    ranges = sorted(ranges, key=lambda r: (r[0], -r[1]))
+    out, stack, i = [], [], 0
+    for t in times:
+        while i < len(ranges) and ranges[i][0] <= t:
+            while stack and stack[-1][1] < ranges[i][0]:
+                stack.pop()
+            stack.append(ranges[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out.append(stack[-1][2] if stack else None)
+    return out
+
+
+def _device_ms_by_span(events, names):
+    """{span or None: {kernel's short name: device ms}} of a profiled
+    run's ``events``: each kernel or copy under the innermost of the
+    ``names`` spans the host was in when its launch call ran (the call and
+    the kernel share a correlation id)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, launched_at, kernels = [], {}, []
+    for e in events:
+        if e.device_type == cuda:
+            # a span's range on the device timeline is no device work
+            if not (getattr(e, "is_user_annotation", False)
+                    or e.name in names):
+                kernels.append(e)
+        elif e.name in names:
+            ranges.append((e.time_range.start, e.time_range.end, e.name))
+        elif e.name.startswith("cu"):
+            launched_at[e.id] = e.time_range.start
+    kernels = sorted(kernels, key=lambda k: launched_at.get(k.id, -1.0))
+    where = _innermost(ranges, [launched_at.get(k.id, -1.0)
+                                for k in kernels])
+    out = {}
+    for k, s in zip(kernels, where):
+        by_kernel = out.setdefault(s, {})
+        name = _short_name(k.name)
+        by_kernel[name] = by_kernel.get(name, 0.0) + (
+            k.time_range.end - k.time_range.start) / 1e3
+    return out
+
+
+def _format_device(by_span) -> str:
+    rows = sorted(by_span.items(), key=lambda kv: -sum(kv[1].values()))
+    lines = ["device ms by span under torch.profiler (heaviest kernels):"]
+    for s, by_kernel in rows:
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+        lines.append(f"  {s or '(no span)':<20} "
+                     f"{sum(by_kernel.values()):>9.3f}  "
+                     + "; ".join(f"{k} {v:.4f}" for k, v in top))
+    return "\n".join(lines)
 
 
 def _short_name(kernel):
@@ -100,51 +156,7 @@ def _short_name(kernel):
     name = kernel.removeprefix("void ").replace("(anonymous namespace)::", "")
     for cut in ("<", "("):
         name = name.split(cut)[0]
-    return name
-
-
-def _profile_stage(name, fn):
-    """Device time of each kernel of one call of a stage, by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in _device_kernels(prof):
-        short = _short_name(e.name)
-        by_name[short] = by_name.get(short, 0.0) + e.device_time / 1e3
-    print(f"{name} under torch.profiler: {wall:.3f} ms wall, "
-          f"{sum(by_name.values()):.3f} ms of device kernels: "
-          + "; ".join(f"{k} {v:.4f}" for k, v in sorted(
-              by_name.items(), key=lambda kv: -kv[1])), flush=True)
-
-
-def _profile_decode(model, kvs, b, device, start_token):
-    from torch.profiler import ProfilerActivity, profile
-
-    caches = model.init_cache(b, PROFILED_STEPS + 1, device)
-    y = torch.full((b,), start_token, dtype=torch.long, device=device)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(PROFILED_STEPS):
-            logits, caches = model.decode_step(y, t, kvs, caches)
-            y = logits.argmax(-1)
-            bool((y == EOS_ID).all())  # the loop's host sync
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = _device_kernels(prof)
-    busy = sum(e.device_time for e in kernels) / 1e3
-    print(f"{PROFILED_STEPS} decode steps under torch.profiler: "
-          f"{wall:.3f} ms wall, {busy:.3f} ms of device kernels "
-          f"({len(kernels)} kernels): busy share "
-          f"{busy / wall if kernels else float('nan'):.4f}", flush=True)
+    return name.strip()
 
 
 if __name__ == "__main__":

@@ -147,7 +147,7 @@ class TrainConfig:
     # single-device (marginally better fusion).
     scan_tasks: Optional[bool] = None
     train_cer_every: int = 1  # compute train CER every N iterations (host sync)
-    profile_dir: str = ""  # jax.profiler trace output (captures iters 3..8)
+    profile_dir: str = ""  # torch.profiler trace with the program's spans
     device_cer: bool = False  # compute train CER on device (two scalars to
     # host instead of decoding token matrices into strings every iteration)
     # Host-feed scaling: N prefetch workers computing future iterations
@@ -355,7 +355,8 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="accepted for compatibility; the STFT always runs "
                         "the CUDA kernel on a CUDA device")
     p.add_argument("--profile-dir", default="", type=str,
-                   help="write a jax.profiler trace of a few train steps here")
+                   help="write a torch.profiler trace of a few train "
+                        "steps here, with the program's spans")
     p.add_argument("--device-cer", action="store_true",
                    help="compute train CER on device (no per-iteration host "
                         "string decode)")

@@ -7,6 +7,10 @@ each row's string at the first EOS. Like the reference's search, no
 decoder-encoder mask is used (padded encoder frames are attended). The loop
 runs on the device and stops once every row has emitted EOS: the all-done
 test is its only host sync per step. Unwritten slots hold EOS.
+
+Spans (``utils/trace.py``): ``greedy.loop`` the whole loop, ``greedy.step``
+one step (its self time dispatches the step), ``greedy.done_sync`` the
+all-done test inside it (the host's wait for the step).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from ..data.vocab import EOS_ID, Vocab
 from ..models.transformer import ASRTransformer
+from ..utils.trace import span
 
 
 @torch.no_grad()
@@ -36,18 +41,23 @@ def greedy_loop(model: ASRTransformer, enc_kvs, b: int,
                 start_token: int = 1) -> torch.Tensor:
     """The KV-cache decode loop of ``greedy_decode_ids``, on the decoder
     layers' precomputed cross-attention K/V."""
-    caches = model.init_cache(b, max_steps + 1, device)
-    y_t = torch.full((b,), start_token, dtype=torch.long, device=device)
-    ys = torch.full((b, max_steps), EOS_ID, dtype=torch.long, device=device)
-    done = torch.zeros((b,), dtype=torch.bool, device=device)
-    for t in range(max_steps):
-        logits, caches = model.decode_step(y_t, t, enc_kvs, caches)
-        y_t = torch.argmax(logits, dim=-1)
-        ys[:, t] = y_t
-        done |= y_t == EOS_ID
-        if bool(done.all()):
-            break
-    return ys
+    with span("greedy.loop"):
+        caches = model.init_cache(b, max_steps + 1, device)
+        y_t = torch.full((b,), start_token, dtype=torch.long, device=device)
+        ys = torch.full((b, max_steps), EOS_ID, dtype=torch.long,
+                        device=device)
+        done = torch.zeros((b,), dtype=torch.bool, device=device)
+        for t in range(max_steps):
+            with span("greedy.step"):
+                logits, caches = model.decode_step(y_t, t, enc_kvs, caches)
+                y_t = torch.argmax(logits, dim=-1)
+                ys[:, t] = y_t
+                done |= y_t == EOS_ID
+                with span("greedy.done_sync"):
+                    stop = bool(done.all())
+            if stop:
+                break
+        return ys
 
 
 def ids_to_strings(ids, vocab: Vocab) -> List[str]:

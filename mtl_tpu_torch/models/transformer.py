@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..utils.trace import span
 from .conformer import ConformerEncoder, DepthwiseConv
 from .decoder import Decoder, LayerKV
 from .encoder import Encoder
@@ -84,11 +85,13 @@ class ASRTransformer(nn.Module):
         the batch's statistics and reports the new running statistics to
         ``stats_out`` (mtl_tpu/models/transformer.py:84-99); under
         ``remat_conv`` it never does."""
-        if self.remat_conv:
-            frames = checkpoint_module(self.conv, features)
-        else:
-            frames = self.conv(features, train_conv, stats_out)
-        return self.encoder(frames, input_lengths, gen)
+        with span("model.vgg"):
+            if self.remat_conv:
+                frames = checkpoint_module(self.conv, features)
+            else:
+                frames = self.conv(features, train_conv, stats_out)
+        with span("model.encoder"):
+            return self.encoder(frames, input_lengths, gen)
 
     def forward(self, features: torch.Tensor, input_lengths: torch.Tensor,
                 seq_in: torch.Tensor, deterministic: bool = True,
@@ -107,7 +110,8 @@ class ASRTransformer(nn.Module):
                              "deterministic")
         enc = self.encode(features, input_lengths, gen,
                           train_conv=not deterministic, stats_out=stats_out)
-        logits = self.decoder(seq_in, enc, input_lengths, gen)
+        with span("model.decoder"):
+            logits = self.decoder(seq_in, enc, input_lengths, gen)
         return (logits, enc) if return_encoder else logits
 
     def forward_with_encoder(self, features, input_lengths, seq_in,
@@ -120,7 +124,8 @@ class ASRTransformer(nn.Module):
                        input_lengths: torch.Tensor
                        ) -> Tuple[torch.Tensor, List[LayerKV]]:
         enc = self.encode(features, input_lengths)
-        return enc, self.decoder.precompute_enc_kv(enc)
+        with span("model.cross_kv"):
+            return enc, self.decoder.precompute_enc_kv(enc)
 
     def decode_step(self, y_t, t, enc_kvs, caches):
         return self.decoder.decode_step(y_t, t, enc_kvs, caches)

@@ -7,9 +7,10 @@ with a plain C interface, loaded with ``ctypes``. Builds happen at first use
 flags so a changed source is rebuilt. ``build()`` compiles all sources at
 once, one ``nvcc`` process each.
 
-``launch_counts`` is the one piece of module state in the port: every kernel
-wrapper adds one to its entry where it launches its kernel, so a run can show
-that its main path went through the kernels. ``vgg_stack_bwd`` counts the
+``launch_counts`` is module state (with the spans' totals of
+``utils/trace.py``, the port's only): every kernel wrapper adds one to its
+entry where it launches its kernel, so a run can show that its main path
+went through the kernels. ``vgg_stack_bwd`` counts the
 VGG stack's backward on the card (``ops/vgg.py:_VGGStack``), which recomputes
 the plain version rather than launching a kernel of this package.
 """

@@ -48,6 +48,12 @@ Both steps take an optional discriminator head (``steps_disc.py``), which
 adds the adversarial or multitask terms to each task's (query) loss and
 updates the discriminator from the same backward.
 
+The meta step's phases are the program's spans (``utils/trace.py``):
+``meta.step`` around ``meta.query_features``, then per task
+``meta.support_fwd``, ``meta.support_grad``, ``meta.inner_sgd``,
+``meta.query_fwd`` and ``meta.query_grad``, then ``meta.outer``; the same
+names in second order.
+
 Parameters are the model's own f32 ``nn.Parameter``s; the adapted weights
 enter the forward through ``torch.func.functional_call``. A step updates
 the parameters and the optimizer state in place.
@@ -106,6 +112,7 @@ from ..ops.frontend import log_fbank, log_spectrogram
 from ..ops.targets import make_teacher_forcing, target_lengths
 from ..parallel import comm
 from ..utils.precision import strict_f32
+from ..utils.trace import span
 from .losses import (ce_loss, ce_row_losses, ctc_loss, ctc_row_losses,
                      masked_loss_guard)
 from .optim import OptState, global_norm
@@ -137,21 +144,22 @@ def prepare_features(batch: Dict[str, torch.Tensor], cfg: Config):
     precomputed ``features``."""
     if "features" in batch:
         return batch["features"], batch["input_lengths"]
-    if cfg.audio.feat == "logfbank":
-        # the psf front-end is uncentered: the n_fft // 2 reflect pad that
-        # collate_audio adds for the STFT comes off again
-        pad = cfg.audio.n_fft // 2
-        audio = batch["audio"]
-        return log_fbank(audio[:, pad:audio.shape[1] - pad],
-                         batch["audio_lengths"],
-                         sample_rate=cfg.audio.sample_rate, nfilt=80,
-                         normalize=cfg.audio.normalize)
-    return log_spectrogram(
-        batch["audio"], batch["audio_lengths"],
-        n_fft=cfg.audio.n_fft, hop=cfg.audio.hop_length,
-        window=cfg.audio.window, normalize=cfg.audio.normalize,
-        prepadded=True,  # collate_audio reflect-pads per utterance
-    )
+    with span("model.features"):
+        if cfg.audio.feat == "logfbank":
+            # the psf front-end is uncentered: the n_fft // 2 reflect pad that
+            # collate_audio adds for the STFT comes off again
+            pad = cfg.audio.n_fft // 2
+            audio = batch["audio"]
+            return log_fbank(audio[:, pad:audio.shape[1] - pad],
+                             batch["audio_lengths"],
+                             sample_rate=cfg.audio.sample_rate, nfilt=80,
+                             normalize=cfg.audio.normalize)
+        return log_spectrogram(
+            batch["audio"], batch["audio_lengths"],
+            n_fft=cfg.audio.n_fft, hop=cfg.audio.hop_length,
+            window=cfg.audio.window, normalize=cfg.audio.normalize,
+            prepadded=True,  # collate_audio reflect-pads per utterance
+        )
 
 
 def _ctc_input_lengths(batch, t: int) -> torch.Tensor:
@@ -204,32 +212,33 @@ def make_forward_fn(model: torch.nn.Module, cfg: Config,
         out = (model(*args, **kwargs) if params is None
                else functional_call(model, params, args, kwargs))
         logits, enc = out if with_encoder else (out, None)
-        if cfg.train.loss == "ctc":
-            loss = ctc_loss(torch.log_softmax(logits, dim=-1),
-                            _ctc_input_lengths(batch, logits.shape[1]),
-                            targets, target_lengths(targets))
-            if data is not None:
-                # a mean over sequences: the shards are equal, so the
-                # global mean is the sum over data of the shard means / D
-                loss = loss / data.size
-            num_correct = torch.zeros((), dtype=torch.long,
-                                      device=logits.device)
-        elif data is None:
-            loss, num_correct = ce_loss(logits, seq_out, PAD_ID, smoothing)
-        else:
-            # a token mean over the global batch: the shards hold other
-            # token counts, so each divides by the global count
-            row_loss, row_tokens = ce_row_losses(logits, seq_out, PAD_ID,
-                                                 smoothing)
-            tokens = comm.all_reduce(row_tokens.sum(), data)
-            loss = row_loss.sum() / tokens.clamp_min(1)
-            num_correct = ((logits.argmax(dim=-1) == seq_out)
-                           & (seq_out != PAD_ID)).sum()
-        aux = {"hyp": logits.argmax(dim=-1), "gold": seq_out,
-               "num_correct": num_correct}
-        if with_encoder:
-            aux["enc"] = enc
-        return _guard(loss, data), aux
+        with span("model.loss"):
+            if cfg.train.loss == "ctc":
+                loss = ctc_loss(torch.log_softmax(logits, dim=-1),
+                                _ctc_input_lengths(batch, logits.shape[1]),
+                                targets, target_lengths(targets))
+                if data is not None:
+                    # a mean over sequences: the shards are equal, so the
+                    # global mean is the sum over data of the shard means / D
+                    loss = loss / data.size
+                num_correct = torch.zeros((), dtype=torch.long,
+                                          device=logits.device)
+            elif data is None:
+                loss, num_correct = ce_loss(logits, seq_out, PAD_ID, smoothing)
+            else:
+                # a token mean over the global batch: the shards hold other
+                # token counts, so each divides by the global count
+                row_loss, row_tokens = ce_row_losses(logits, seq_out, PAD_ID,
+                                                     smoothing)
+                tokens = comm.all_reduce(row_tokens.sum(), data)
+                loss = row_loss.sum() / tokens.clamp_min(1)
+                num_correct = ((logits.argmax(dim=-1) == seq_out)
+                               & (seq_out != PAD_ID)).sum()
+            aux = {"hyp": logits.argmax(dim=-1), "gold": seq_out,
+                   "num_correct": num_correct}
+            if with_encoder:
+                aux["enc"] = enc
+            return _guard(loss, data), aux
 
     return forward
 
@@ -471,24 +480,26 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
 
     def second_order_task(names, params, s_loss, q, generator, stats_out,
                           tp):
-        """(query loss, its aux, its gradient at p) of ``task_outer_loss``:
-        the gradient flows through the inner SGD step (and, on a mesh,
-        through the all-reduce of the support gradient over ``data``). The
-        task's graph goes with the return."""
-        g = torch.autograd.grad(s_loss, params, create_graph=True)
-        if mesh is not None:
-            g = comm.all_reduce_grad_list(g, mesh.data)
-        if clip:
-            g = _clip_tree(g, max_norm, differentiable=True, tp=tp)
-        adapted = [p - inner_lr * gi for p, gi in zip(params, g)]
-        q_loss, aux_q = forward(dict(zip(names, adapted)), q, generator,
-                                False, stats_out=stats_out)
-        return q_loss, aux_q, list(torch.autograd.grad(q_loss, params))
+        """(query loss, its aux) of ``task_outer_loss``, whose gradient at p
+        flows through the inner SGD step (and, on a mesh, through the
+        all-reduce of the support gradient over ``data``)."""
+        with span("meta.support_grad"):
+            g = torch.autograd.grad(s_loss, params, create_graph=True)
+            if mesh is not None:
+                g = comm.all_reduce_grad_list(g, mesh.data)
+        with span("meta.inner_sgd"):
+            if clip:
+                g = _clip_tree(g, max_norm, differentiable=True, tp=tp)
+            adapted = [p - inner_lr * gi for p, gi in zip(params, g)]
+        with span("meta.query_fwd"):
+            return forward(dict(zip(names, adapted)), q, generator, False,
+                           stats_out=stats_out)
 
     def step(state: TrainState, support: Dict[str, torch.Tensor],
              query: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, beta: float = 0.5):
-        with strict_f32() if second_order else contextlib.nullcontext():
+        with span("meta.step"), \
+                strict_f32() if second_order else contextlib.nullcontext():
             return run(state, support, query, generator, beta)
 
     def run(state, support, query, generator, beta):
@@ -497,7 +508,8 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
         tp = tp_split(model, names)
         d_params = [] if head is None else head.params(state)
         if not per_task_query:  # the shared query's features, once
-            feats, lengths = prepare_features(query, cfg)
+            with span("meta.query_features"):
+                feats, lengths = prepare_features(query, cfg)
             query = {"features": feats, "input_lengths": lengths,
                      "targets": query["targets"],
                      "src_percentages": query["src_percentages"]}
@@ -509,73 +521,82 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
         q_losses, s_losses, s_aux, q_aux, terms, ces = [], [], [], [], [], []
         stats = []  # the query forwards' BatchNorm statistics
         for i in range(k_local):
-            s_loss, aux = forward(None, _task_batch(support, i), generator,
-                                  False)
+            with span("meta.support_fwd"):
+                s_loss, aux = forward(None, _task_batch(support, i),
+                                      generator, False)
             q = _task_batch(query, i) if per_task_query else query
             stats.append([])
             if second_order:
-                q_loss, aux_q, gq = second_order_task(
+                q_loss, aux_q = second_order_task(
                     names, params, s_loss, q, generator, stats[-1], tp)
+                wrt = params
             else:
-                g = list(torch.autograd.grad(s_loss, params))
-                if mesh is not None:
-                    g = comm.all_reduce_list(g, mesh.data)
-                if clip:
-                    g = _clip_tree(g, max_norm, tp=tp)
-                with torch.no_grad():
-                    adapted = list(torch._foreach_add(params, g,
-                                                      alpha=-inner_lr))
-                for a in adapted:
-                    a.requires_grad_(True)
-                q_loss, aux_q = forward(dict(zip(names, adapted)), q,
-                                        generator, False,
-                                        with_encoder=head is not None,
-                                        stats_out=stats[-1])
-                if head is not None:
-                    ces.append(q_loss.detach())
-                    terms.append(head.terms(
-                        aux_q.pop("enc"),
-                        first + i if per_task_query else k - 1, beta))
-                    q_loss = q_loss + terms[-1][0]
-                gq = list(torch.autograd.grad(q_loss, adapted + d_params))
-            if gsum is None:
-                gsum = gq
-            else:
-                torch._foreach_add_(gsum, gq)
+                with span("meta.support_grad"):
+                    g = list(torch.autograd.grad(s_loss, params))
+                    if mesh is not None:
+                        g = comm.all_reduce_list(g, mesh.data)
+                with span("meta.inner_sgd"):
+                    if clip:
+                        g = _clip_tree(g, max_norm, tp=tp)
+                    with torch.no_grad():
+                        adapted = list(torch._foreach_add(params, g,
+                                                          alpha=-inner_lr))
+                    for a in adapted:
+                        a.requires_grad_(True)
+                with span("meta.query_fwd"):
+                    q_loss, aux_q = forward(dict(zip(names, adapted)), q,
+                                            generator, False,
+                                            with_encoder=head is not None,
+                                            stats_out=stats[-1])
+                    if head is not None:
+                        ces.append(q_loss.detach())
+                        terms.append(head.terms(
+                            aux_q.pop("enc"),
+                            first + i if per_task_query else k - 1, beta))
+                        q_loss = q_loss + terms[-1][0]
+                wrt = adapted + d_params
+            with span("meta.query_grad"):
+                gq = list(torch.autograd.grad(q_loss, wrt))
+                if gsum is None:
+                    gsum = gq
+                else:
+                    torch._foreach_add_(gsum, gq)
             q_losses.append(q_loss.detach())
             s_losses.append(s_loss.detach())
             s_aux.append(aux)
             q_aux.append(aux_q)
-            del s_loss, q_loss  # the task's graph, before the next task
-        if mesh is not None:
-            gsum = comm.all_reduce_list(gsum, mesh.plane)
-            _agree_over_model(gsum, tp, mesh)
-        torch._foreach_div_(gsum, k)
-        gsum, dsum = gsum[:len(params)], gsum[len(params):]
-        if clip:
-            gsum = _clip_tree(gsum, max_norm, tp=tp)
-        outer_optimizer.update(dict(zip(names, gsum)), state.opt_state,
-                               state.params)
-        _merge_batch_stats(model, stats, mesh)
-        s_hyp = torch.stack([a["hyp"] for a in s_aux])
-        s_gold = torch.stack([a["gold"] for a in s_aux])
-        metrics = {
-            "outer_loss": _global(_task_mean(q_losses, mesh, k), mesh),
-            "support_losses": _support_losses(s_losses, mesh, first, k),
-            "support_hyp": _gather_tasks(s_hyp, mesh),
-            "support_gold": _gather_tasks(s_gold, mesh),
-            "query_hyp": _gather_tasks(
-                torch.stack([a["hyp"] for a in q_aux]), mesh),
-            "query_gold": _gather_tasks(
-                torch.stack([a["gold"] for a in q_aux]), mesh),
-        }
-        if with_cer:
-            metrics.update(_device_cer_metrics(s_hyp, s_gold, space_id,
-                                               mesh))
-        if head is not None:
-            head.update(state, dsum)
-            metrics["query_ce"] = _global(_task_mean(ces, mesh, k), mesh)
-            metrics.update(head.metrics(terms, k))
+            # the task's graph and adapted weights, before the next task
+            del s_loss, q_loss, wrt
+        with span("meta.outer"):
+            if mesh is not None:
+                gsum = comm.all_reduce_list(gsum, mesh.plane)
+                _agree_over_model(gsum, tp, mesh)
+            torch._foreach_div_(gsum, k)
+            gsum, dsum = gsum[:len(params)], gsum[len(params):]
+            if clip:
+                gsum = _clip_tree(gsum, max_norm, tp=tp)
+            outer_optimizer.update(dict(zip(names, gsum)), state.opt_state,
+                                   state.params)
+            _merge_batch_stats(model, stats, mesh)
+            s_hyp = torch.stack([a["hyp"] for a in s_aux])
+            s_gold = torch.stack([a["gold"] for a in s_aux])
+            metrics = {
+                "outer_loss": _global(_task_mean(q_losses, mesh, k), mesh),
+                "support_losses": _support_losses(s_losses, mesh, first, k),
+                "support_hyp": _gather_tasks(s_hyp, mesh),
+                "support_gold": _gather_tasks(s_gold, mesh),
+                "query_hyp": _gather_tasks(
+                    torch.stack([a["hyp"] for a in q_aux]), mesh),
+                "query_gold": _gather_tasks(
+                    torch.stack([a["gold"] for a in q_aux]), mesh),
+            }
+            if with_cer:
+                metrics.update(_device_cer_metrics(s_hyp, s_gold, space_id,
+                                                   mesh))
+            if head is not None:
+                head.update(state, dsum)
+                metrics["query_ce"] = _global(_task_mean(ces, mesh, k), mesh)
+                metrics.update(head.metrics(terms, k))
         state.step += 1
         return state, metrics
 

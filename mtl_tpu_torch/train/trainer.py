@@ -12,7 +12,10 @@ discriminator head of train/steps_disc.py), the train CER of the (support)
 hypotheses on the host (with ``--device-cer``, two scalars the step
 computed on the device, except under a discriminator head, as in the JAX
 package), the reference's log lines letter for letter; with
-``--profile-dir`` a torch.profiler trace of iterations start+4 to start+8;
+``--profile-dir`` a torch.profiler trace of iterations start+4 to start+8,
+which carries the main thread's spans (``utils/trace.py``:
+``train.iteration``, ``data.wait``, ``train.to_device``, the meta step's
+phases, ``train.cer``);
 every ``--evaluate-every`` iterations an evaluation of the valid sets, a
 checkpoint when the iteration is also a multiple of ``--save-every``, the
 best model by the early-stop criterion, and the early stop itself. The
@@ -87,6 +90,7 @@ from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer_batch
 from ..utils.params import compute_num_params
 from ..utils.precision import strict_f32
+from ..utils.trace import span
 from .optim import (make_epoch_optimizer, make_joint_optimizer,
                     make_meta_optimizers, opt_state_fits, restore_opt_state)
 from .steps import (TrainState, _clip_tree, batch_to_device,
@@ -139,7 +143,8 @@ class Prefetcher:
         self._thread.start()
 
     def get(self):
-        self._thread.join()
+        with span("data.wait"):
+            self._thread.join()
         out, err = self._result, self._error
         self.start()
         if err is not None:
@@ -182,7 +187,8 @@ class MultiWorkerPrefetcher:
         fut = self._futures.pop(self._head)
         self._head += 1
         self._submit()
-        return fut.result()
+        with span("data.wait"):
+            return fut.result()
 
     def stop(self):
         self.pool.shutdown(wait=True, cancel_futures=True)
@@ -357,14 +363,15 @@ class TrainerBase:
         (a discriminator step does not), else the host CER every
         ``--train-cer-every`` steps (the ``n``-th counted from 0), else
         (0, 1) (mtl_tpu/train/trainer.py:441-446)."""
-        if self.cfg.train.device_cer and "cer_dist" in metrics:
-            return (int(metrics["cer_dist"]),
-                    max(int(metrics["cer_chars"]), 1))
-        if (n + 1) % max(self.cfg.train.train_cer_every, 1) == 0 \
-                and self.is_root:
-            return batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
-                             self.vocab)
-        return 0, 1
+        with span("train.cer"):
+            if self.cfg.train.device_cer and "cer_dist" in metrics:
+                return (int(metrics["cer_dist"]),
+                        max(int(metrics["cer_chars"]), 1))
+            if (n + 1) % max(self.cfg.train.train_cer_every, 1) == 0 \
+                    and self.is_root:
+                return batch_cer(hyp.cpu().numpy(), gold.cpu().numpy(),
+                                 self.vocab)
+            return 0, 1
 
     def _shard(self, batch: Dict[str, np.ndarray], task_axis: bool
                ) -> Dict[str, np.ndarray]:
@@ -514,64 +521,66 @@ class TrainerBase:
         it = start_it
         while it < num_it:
             profiler.at(it)
-            # in-loop fault recovery (transient_trainer.py:364-377,
-            # joint_trainer.py:391-405): a data error drops the batch,
-            # refetches and keeps `it`
-            try:
-                batch, error = prefetch.get(), None
-            except Exception as e:
-                batch, error = None, e
-            if self.mesh is not None and comm.any_flag(
-                    error is not None, self.mesh.world, self.device) \
-                    and error is None:
-                error = RuntimeError("a batch failed to load on another "
-                                     "rank")
-            if error is not None:
-                failures += 1
-                log_print(f"Error: {error!r}, fetching new data...")
-                if failures >= self.MAX_CONSECUTIVE_FAILURES:
-                    raise error
-                continue
-            failures = 0
-            start_time = time.time()
-            if cfg.train.beta_decay:  # meta_trainer.py:258-260
-                beta *= 0.99997
-            state, loss, hyp, gold, m = self.run_step(
-                step_fn, state, batch, generator,
-                beta if cfg.train.beta_decay else 0.5)
-            loss = float(loss)
-            cer, nchar = self._train_cer(hyp, gold, m, it)
-            total_time += time.time() - start_time
-            last_sum_loss.append(loss)
-            last_sum_cer.append(cer)
-            last_sum_char.append(max(nchar, 1))
+            with span("train.iteration"):
+                # in-loop fault recovery (transient_trainer.py:364-377,
+                # joint_trainer.py:391-405): a data error drops the batch,
+                # refetches and keeps `it`
+                try:
+                    batch, error = prefetch.get(), None
+                except Exception as e:
+                    batch, error = None, e
+                if self.mesh is not None and comm.any_flag(
+                        error is not None, self.mesh.world, self.device) \
+                        and error is None:
+                    error = RuntimeError("a batch failed to load on another "
+                                         "rank")
+                if error is not None:
+                    failures += 1
+                    log_print(f"Error: {error!r}, fetching new data...")
+                    if failures >= self.MAX_CONSECUTIVE_FAILURES:
+                        raise error
+                    continue
+                failures = 0
+                start_time = time.time()
+                if cfg.train.beta_decay:  # meta_trainer.py:258-260
+                    beta *= 0.99997
+                state, loss, hyp, gold, m = self.run_step(
+                    step_fn, state, batch, generator,
+                    beta if cfg.train.beta_decay else 0.5)
+                loss = float(loss)
+                cer, nchar = self._train_cer(hyp, gold, m, it)
+                total_time += time.time() - start_time
+                last_sum_loss.append(loss)
+                last_sum_cer.append(cer)
+                last_sum_char.append(max(nchar, 1))
 
-            log_print(
-                "(Iteration {}) TRAIN LOSS:{:.4f} CER:{:.2f}% "
-                "LR:{:.7f} TOTAL TIME:{:.7f}".format(
-                    it + 1, loss, cer * 100.0 / max(nchar, 1),
-                    self.logged_lr, total_time
-                )
-            )
-            if (it + 1) % 1000 == 0:
                 log_print(
-                    "(Summary Iteration {} | MA {}) TRAIN LOSS:{:.4f} "
-                    "CER:{:.2f}%".format(
-                        it + 1, window,
-                        sum(last_sum_loss) / len(last_sum_loss),
-                        sum(last_sum_cer) * 100.0 / max(sum(last_sum_char), 1),
+                    "(Iteration {}) TRAIN LOSS:{:.4f} CER:{:.2f}% "
+                    "LR:{:.7f} TOTAL TIME:{:.7f}".format(
+                        it + 1, loss, cer * 100.0 / max(nchar, 1),
+                        self.logged_lr, total_time
                     )
                 )
+                if (it + 1) % 1000 == 0:
+                    log_print(
+                        "(Summary Iteration {} | MA {}) TRAIN LOSS:{:.4f} "
+                        "CER:{:.2f}%".format(
+                            it + 1, window,
+                            sum(last_sum_loss) / len(last_sum_loss),
+                            sum(last_sum_cer) * 100.0
+                            / max(sum(last_sum_char), 1),
+                        )
+                    )
 
-            if (it + 1) % cfg.train.evaluate_every == 0:
-                stop = False
-                if self.evaluates:
-                    stop = self._evaluate_and_save(state, valid_sets, it,
-                                                   stopper, history)
-                if self._stop_all(stop):
-                    log_print("EARLY STOP")
-                    break
-            it += 1
+                if (it + 1) % cfg.train.evaluate_every == 0:
+                    stop = False
+                    if self.evaluates:
+                        stop = self._evaluate_and_save(state, valid_sets, it,
+                                                       stopper, history)
+                    if self._stop_all(stop):
+                        log_print("EARLY STOP")
+                        break
+                it += 1
         return state
 
     def _evaluate_and_save(self, state, valid_sets, it: int,
@@ -678,9 +687,10 @@ class TransientTrainer(TrainerBase):
 
     def run_step(self, step_fn, state, batch, generator, beta):
         # the shared query is sharded over data, MAML's over (task, data)
-        support, query = (
-            batch_to_device(self._shard(b, task_axis), self.device)
-            for b, task_axis in zip(batch, (True, self.per_task_query)))
+        with span("train.to_device"):
+            support, query = [
+                batch_to_device(self._shard(b, task_axis), self.device)
+                for b, task_axis in zip(batch, (True, self.per_task_query))]
         state, m = step_fn(state, support, query, generator, beta)
         return (state, m["outer_loss"], m["support_hyp"], m["support_gold"],
                 m)

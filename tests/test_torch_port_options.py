@@ -323,14 +323,20 @@ def test_options_cli_lines_match_jax(runs):
 
 
 def test_options_cli_profiles_and_stops_its_workers(runs):
-    """The port's run wrote a torch.profiler trace and printed the JAX
-    package's line; no prefetch thread was alive after it returned."""
+    """The port's run wrote a torch.profiler trace that carries the
+    program's spans (the meta step and its support backward, one of each a
+    traced iteration) and printed the JAX package's line; no prefetch thread
+    was alive after it returned."""
     _, port_out, profile_dir, alive = runs
     assert f"PROFILE written to {profile_dir}" in port_out
     traces = [f for f in os.listdir(profile_dir) if f.endswith(".json")]
     assert len(traces) == 1
     with open(os.path.join(profile_dir, traces[0])) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events if e.get("ph") == "X"]
+    assert names.count("meta.step") == 5  # iterations 4 to 8
+    assert names.count("meta.support_grad") == 5 * 3  # K 3 tasks each
+    assert names.count("train.iteration") == 5
     assert alive == []
 
 

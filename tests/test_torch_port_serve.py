@@ -99,8 +99,9 @@ def test_test_main_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 def test_breakdown_stages_on_cpu(tmp_path, monkeypatch, capsys):
-    """The stage-time tool runs every stage of one served batch; its decode
-    loop runs as many steps as the ids show."""
+    """The span-time tool serves one batch under the program's spans: every
+    stage's span is counted once, and the decode loop's ``greedy.step`` and
+    ``greedy.done_sync`` once a decode step the ids show."""
     from mtl_tpu_torch.cli.breakdown import breakdown_main
     from mtl_tpu_torch.models.transformer import build_model, init_weights
 
@@ -116,16 +117,22 @@ def test_breakdown_stages_on_cpu(tmp_path, monkeypatch, capsys):
     init_weights(model, torch.Generator().manual_seed(0))
     path = save_checkpoint(cfg, vocab, model.state_dict(), 0,
                            best_model=True)
-    ms, steps = breakdown_main([
+    totals, steps = breakdown_main([
         "--test-manifest-list", manifests[0], "--labels-path", labels_path,
         "--continue-from", path, "--k-test", "2", "--src-buckets", "64",
         "--tgt-buckets", "16", "--device", "cpu"])
-    assert list(ms) == ["host_read_collate", "to_device", "features",
-                        "vgg_stack", "encoder", "cross_kv", "decode_loop",
-                        "to_strings"]
-    assert all(v >= 0.0 for v in ms.values())
+    once = ["serve.read_collate", "serve.to_device", "model.features",
+            "model.vgg", "model.encoder", "model.cross_kv", "greedy.loop",
+            "serve.to_strings"]
+    assert set(totals) == set(once) | {"greedy.step", "greedy.done_sync"}
+    assert all(totals[name].count == 1 for name in once)
     assert 1 <= steps <= 300
-    assert "decode steps; stage ms:" in capsys.readouterr().out
+    assert totals["greedy.step"].count == steps
+    assert totals["greedy.done_sync"].count == steps
+    assert all(0 <= t.self_ns <= t.ns for t in totals.values())
+    out = capsys.readouterr().out
+    assert "decode steps; host ms by span:" in out
+    assert "greedy.step" in out
 
 
 def test_breakdown_short_kernel_names():
