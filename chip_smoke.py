@@ -70,9 +70,28 @@ Drives the port only (``mtl_tpu_torch``; nothing of JAX or ``mtl_tpu``):
    iteration 7. The counters are zeroed before the run and read after it:
    the FFT STFT, both bf16 VGG kernels (at least 2K forward launches a
    step each) and the VGG stack's backward (at least 2K a step) must have
-   run, the direct STFT never. Then one meta step is timed on device-side
-   batches (median over the steps after the first), with the peak memory,
-   and one step is profiled: its busy share and device time by kernel;
+   run, the direct STFT never. The trainer replays the step as CUDA
+   graphs (``train/graphs.py``), whose kernels count at the eager steps and
+   the captures alone: the counts are held against the steps that ran the
+   step's host code (the steps less ``meta_graph_replays``, plus
+   ``meta_graph_captures``), and at least one replay must have run. Then
+   one meta step is timed on device-side batches (median over the steps
+   after the first), with the peak memory, and one step is profiled: its
+   busy share and device time by kernel;
+9b. the graph-replayed meta step (``GraphedMetaStep``) against the eager
+   step from the same weights over the same host batches, at the flagship
+   width (bf16, dropout 0.1, K 3 x 8 + 8 of the phase-9 corpus) over the
+   keys A, A, B, B, A (800 frames x 128 labels, 1600 x 256), cuDNN on its
+   deterministic algorithms in both runs: every step's metrics, the
+   weights and Adam's moments bit-equal or within one bf16 ulp of the
+   largest element; the kernel launches of each replay (its capture's)
+   added to the counted ones give the eager run's. Then the memory at
+   configs[4]'s width: the eager step and the graphed step over 800 x 128
+   three times, 2500 x 256 (the default grid's largest bucket) three
+   times and 800 x 128 again, each run from an empty cache, printing each
+   step's seconds and the card's reserved bytes (the allocator's peak and
+   the graphs' pool); the graphed run may reserve at most 1.1 times the
+   eager run's peak;
 10. checks one meta step at f32 on the card (kernels, f32 routes) against
    the same step on the CPU (plain versions) from the same weights and
    batch (2 tasks of 2 utterances, 400 frames): outer loss, outer
@@ -1244,14 +1263,17 @@ def train(torch, dev, work):
           f"(host clock, batch to device + step + train CER): median "
           f"{per_it:.3f} ms", flush=True)
     print(f"launches in the train run: {counts}", flush=True)
-    need = 2 * K_TASKS * TRAIN_STEPS
+    ran = _host_steps(counts, TRAIN_STEPS)
+    need = 2 * K_TASKS * ran
     check(all(counts[k] >= need for k in ("vgg_block1", "vgg_block2",
                                           "vgg_stack_bwd"))
-          and counts["stft_logmag"] >= (K_TASKS + 1) * TRAIN_STEPS
-          and counts["stft_logmag_direct"] == 0,
-          f"the train run must launch each VGG kernel and the backward "
-          f">= {need} times, the FFT STFT >= {(K_TASKS + 1) * TRAIN_STEPS},"
-          f" the direct STFT never: {counts}")
+          and counts["stft_logmag"] >= (K_TASKS + 1) * ran
+          and counts["stft_logmag_direct"] == 0
+          and counts["meta_graph_replays"] >= 1,
+          f"the train run must replay the step at least once, launch each "
+          f"VGG kernel and the backward >= {need} times in the {ran} steps "
+          f"that ran on the host, the FFT STFT >= {(K_TASKS + 1) * ran}, "
+          f"the direct STFT never: {counts}")
 
     # resume from the last checkpoint: iterations 7 and 8
     state, out, _, _ = _run_cli(
@@ -1296,6 +1318,155 @@ def train(torch, dev, work):
         print(f"  top host op {a.self_cpu_time_total / 1e3:9.3f} ms "
               f"{a.count:6d} calls  {a.key[:80]}", flush=True)
     return counts, corpus, models
+
+
+def _host_steps(counts, steps):
+    """How many of a meta run's ``steps`` ran the step's host code, which
+    counts the kernels: a step replayed as a CUDA graph launches them
+    uncounted, and a capture counts them once, for itself and its first
+    replay."""
+    return (steps - counts["meta_graph_replays"]
+            + counts["meta_graph_captures"])
+
+
+GRAPH_KEYS = [(800, 128), (800, 128), (1600, 256), (1600, 256), (800, 128)]
+CONFORMER_GRAPH_KEYS = [(800, 128)] * 3 + [(2500, 256)] * 3 + [(800, 128)]
+
+
+def _graph_batches(ds, keys):
+    """Host meta batches (support [K, B, ...], the shared query) forced to
+    the (frames, labels) buckets of ``keys``."""
+    out = []
+    for frames, labels in keys:
+        sup = [ds._collate(ds.sample_pairs(K_SHOT, m), frames, labels)
+               for m in range(K_TASKS)]
+        out.append(({k: np.stack([b[k] for b in sup]) for k in sup[0]},
+                    ds._collate(ds.sample_pairs(K_SHOT, K_TASKS - 1),
+                                frames, labels)))
+    return out
+
+
+def _graph_step_run(torch, dev, cfg, vocab, weights, batches, graphed):
+    """Meta steps over the host ``batches`` from ``weights``, each run from
+    an empty cache and the allocator's peaks reset: the eager step (each
+    batch copied to the card first) or ``GraphedMetaStep``. Returns
+    (metrics by step, the final weights and Adam moments, all on the host;
+    per step (seconds, reserved peak bytes); the graphs' pool's reserved
+    bytes (0 eager); launch counts with each replay's kernels added)."""
+    from mtl_tpu_torch.models.transformer import build_model
+    from mtl_tpu_torch.ops import native
+    from mtl_tpu_torch.train.graphs import GraphedMetaStep
+    from mtl_tpu_torch.train.optim import make_meta_optimizers
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, len(vocab), dev)
+    model.load_state_dict(weights)
+    _, opt = make_meta_optimizers(cfg)
+    state = init_train_state(model, opt)
+    step = (GraphedMetaStep(model, cfg, opt, dev) if graphed
+            else make_meta_step(model, cfg, opt))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    native.reset_launch_counts()
+    metrics, per_step = [], []
+    for support, query in batches:
+        t0 = time.perf_counter()
+        if not graphed:
+            support, query = (batch_to_device(b, dev) for b in (support,
+                                                                query))
+        state, m = step(state, support, query, gen)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0,
+                         torch.cuda.max_memory_reserved()))
+        metrics.append({k: v.cpu() for k, v in m.items()})
+    counts = dict(native.launch_counts)
+    pool = 0
+    if graphed:
+        pool = step.pool.reserved_bytes()
+        for e in step.entries.values():
+            for k, n in e.launches.items():
+                counts[k] += n * (e.replays - 1)
+    final = {group: {n: t.detach().cpu() for n, t in ts.items()}
+             for group, ts in (("param", state.params),
+                               ("mu", state.opt_state.mu),
+                               ("nu", state.opt_state.nu))}
+    del model, state, step, m
+    _free(torch)
+    return metrics, final, per_step, pool, counts
+
+
+def graph_checks(torch, dev, corpus):
+    """Phase 9b (module docstring)."""
+    argv = _asr_train_argv(dev, [os.path.join(corpus,
+                                              f"manifest_task{i}.csv")
+                                 for i in range(K_TASKS)],
+                           os.path.join(corpus, "labels.json"),
+                           os.path.join(WORK, "graph_models"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                    "chip_graph_parity")
+        weights = {k: v.detach().cpu().clone()
+                   for k, v in model.state_dict().items()}
+        del model
+        batches = _graph_batches(ds, GRAPH_KEYS)
+        want, w_final, _, _, c0 = _graph_step_run(torch, dev, cfg, vocab,
+                                                  weights, batches, False)
+        got, g_final, _, pool, c1 = _graph_step_run(torch, dev, cfg, vocab,
+                                                    weights, batches, True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    worst, exact = 0.0, True
+    pairs = [(f"step {i + 1} {k}", w[k], g[k])
+             for i, (w, g) in enumerate(zip(want, got)) for k in w]
+    pairs += [(f"{group} {n}", w_final[group][n], g_final[group][n])
+              for group in w_final for n in w_final[group]]
+    for what, w, g in pairs:
+        if torch.equal(w, g):
+            continue
+        exact = False
+        check(w.is_floating_point(), f"graph parity: {what} differs")
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        worst = max(worst, err / scale if scale else math.inf)
+    check(worst <= 2.0 ** -8, f"graph parity: worst error {worst:.3e} of "
+          f"the largest element, above one bf16 ulp")
+    replays = c1.pop("meta_graph_replays")
+    captures = c1.pop("meta_graph_captures")
+    check(c0.pop("meta_graph_replays") == c0.pop("meta_graph_captures") == 0
+          and (captures, replays) == (2, 3) and c0 == c1,
+          f"graph parity launches: eager {c0}, graphed with each replay's "
+          f"kernels {c1}, {captures} captures, {replays} replays")
+    print(f"graph parity (flagship, bf16, keys {GRAPH_KEYS}): bit-equal "
+          f"{exact}, worst error {worst:.3e} of the largest element; "
+          f"{captures} captures, {replays} replays, launches {c1}; pool "
+          f"{pool / 2**30:.3f} GiB", flush=True)
+
+    argv = _conformer_argv(dev, corpus, os.path.join(WORK, "graph_models"))
+    cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
+                                                "chip_graph_memory")
+    weights = {k: v.detach().cpu().clone()
+               for k, v in model.state_dict().items()}
+    del model
+    batches = _graph_batches(ds, CONFORMER_GRAPH_KEYS)
+    peaks = {}
+    for graphed in (False, True):
+        _, _, per_step, pool, _ = _graph_step_run(torch, dev, cfg, vocab,
+                                                  weights, batches, graphed)
+        what = "graphed" if graphed else "eager"
+        peaks[what] = per_step[-1][1]
+        print(f"graph memory, configs[4] width, {what}: " + ", ".join(
+            f"{f}x{lab} {sec:.3f} s {res / 2**30:.2f} GiB"
+            for (f, lab), (sec, res) in zip(CONFORMER_GRAPH_KEYS, per_step))
+            + f"; reserved peak {peaks[what] / 2**30:.3f} GiB, pool "
+            f"{pool / 2**30:.3f} GiB", flush=True)
+    check(peaks["graphed"] <= 1.1 * peaks["eager"],
+          f"graph memory: the graphed run reserved "
+          f"{peaks['graphed'] / 2**30:.3f} GiB, the eager run "
+          f"{peaks['eager'] / 2**30:.3f} GiB")
 
 
 def _asr_train_argv(dev, manifests, labels, models):
@@ -1757,7 +1928,8 @@ def maml(torch, dev, work, corpus):
     print(f"MAML run: {MAML_STEPS} steps (K {K_TASKS}, {K_SHOT} + {K_SHOT} "
           f"own-query utterances a task, bf16) with 2 evaluations, 3 "
           f"checkpoints and 2 meta-test trials in {wall:.3f} s", flush=True)
-    _check_counts(counts, 2 * K_TASKS * MAML_STEPS, "MAML run")
+    _check_counts(counts, 2 * K_TASKS * _host_steps(counts, MAML_STEPS),
+                  "MAML run")
 
     cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
                                                 "chip_maml_timing")
@@ -2090,9 +2262,10 @@ def options(torch, dev, work, corpus):
           f" MiB trace) in {wall:.3f} s; TOTAL TIME per iteration after the "
           f"first: median {_per_iteration(out):.3f} ms; no prefetch thread "
           f"alive after it", flush=True)
-    _check_counts(counts, 2 * K_TASKS * OPTION_STEPS, "options run",
+    ran = _host_steps(counts, OPTION_STEPS)
+    _check_counts(counts, 2 * K_TASKS * ran, "options run",
                   forward=("vgg_block1", "vgg_block2", "vgg_stack_bwd"))
-    check(counts["stft_logmag"] >= (K_TASKS + 1) * OPTION_STEPS,
+    check(counts["stft_logmag"] >= (K_TASKS + 1) * ran,
           f"options run STFT launches: {counts}")
 
     cfg, vocab, ds, model = _train_corpus_setup(torch, dev, corpus, argv,
@@ -3654,6 +3827,7 @@ def main():
     # 9. train the flagship width through the CLI; 10. f32 train parity
     t0 = time.perf_counter()
     _, train_corpus, meta_models = train(torch, dev, WORK)
+    graph_checks(torch, dev, train_corpus)
     train_parity(torch, dev, train_corpus)
     print(f"train phases {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -53,6 +53,7 @@ keeps this rank's slice.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -73,12 +74,32 @@ def _layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS, dtype=torch.float32)
 
 
+def rope_inverse_frequencies(dim: int) -> np.ndarray:
+    """[dim/2] float64 theta_i = 10000^{-2i/dim}."""
+    return 1.0 / (10000.0 ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+
+
 def rope_angles(t: int, dim: int) -> np.ndarray:
-    """[T, dim/2] rotation angles, theta_i = 10000^{-2i/dim}: float64
+    """[T, dim/2] rotation angles: position times theta_i in float64
     numpy, then f32 (mtl_tpu/models/conformer.py:31-35)."""
-    inv = 1.0 / (10000.0 ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
     pos = np.arange(t, dtype=np.float64)[:, None]
-    return (pos * inv[None, :]).astype(np.float32)
+    return (pos * rope_inverse_frequencies(dim)[None, :]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_rope_inverse(dim: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(rope_inverse_frequencies(dim)).to(device)
+
+
+def device_rope_angles(t: int, dim: int, device: torch.device
+                       ) -> torch.Tensor:
+    """``rope_angles`` computed on ``device`` with the same float64
+    products, so the bits match. Only the [dim/2] frequencies are copied
+    from the host, once per dim: a forward copies nothing and keeps
+    nothing per length, which a CUDA graph's capture and the eager steps
+    that share its memory pool (``train/graphs.py``) need."""
+    pos = torch.arange(t, dtype=torch.float64, device=device)[:, None]
+    return (pos * _device_rope_inverse(dim, device)[None, :]).float()
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -168,8 +189,7 @@ class ConformerAttention(nn.Module):
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         q, k, v = self.project(x)
-        angles = torch.from_numpy(
-            rope_angles(x.shape[1], q.shape[-1])).to(x.device)
+        angles = device_rope_angles(x.shape[1], q.shape[-1], x.device)
         return self.attend(q, k, v, angles, angles, attn_mask, gen)
 
 

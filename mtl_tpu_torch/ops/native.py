@@ -58,11 +58,15 @@ ENTRIES = {
 # the STFT has two routes chosen by n_fft: the FFT (stft_fft.cu) and the
 # direct DFT (stft_dft_tc.cu, counted as stft_logmag_direct); the VGG blocks
 # two chosen by dtype: bf16 tensor cores (vgg_tc.cu) and f32 on 3xTF32
-# tensor cores (vgg_f32_tc.cu, counted as *_f32)
+# tensor cores (vgg_f32_tc.cu, counted as *_f32). A meta step replayed as a
+# CUDA graph (train/graphs.py) counts its kernels once, at its capture, and
+# each replay under meta_graph_replays
 launch_counts: Dict[str, int] = {"stft_logmag": 0, "stft_logmag_direct": 0,
                                  "vgg_block1": 0, "vgg_block2": 0,
                                  "vgg_block1_f32": 0, "vgg_block2_f32": 0,
-                                 "vgg_stack_bwd": 0}
+                                 "vgg_stack_bwd": 0,
+                                 "meta_graph_captures": 0,
+                                 "meta_graph_replays": 0}
 
 
 def reset_launch_counts() -> None:

@@ -14,7 +14,12 @@ eps 1e-8, eps_root 0, bias-corrected):
 in f32 on named parameters, with the multi-tensor ``torch._foreach_*`` ops
 so that one update costs a handful of launches. Its state (``count``,
 ``mu``, ``nu`` keyed by parameter name) is what a checkpoint stores and what
-``interop.py`` maps onto optax's ``ScaleByAdamState``.
+``interop.py`` maps onto optax's ``ScaleByAdamState``. A step replayed as
+a CUDA graph (``train/graphs.py``) cannot take the bias corrections as host
+floats, which a capture would freeze: it passes ``update`` a
+``DeviceBiasCorrection``, f32 scalars on the card that the host writes
+before each step, and the update reads them with the arithmetic the floats
+get.
 
 ``SGD`` is ``optax.sgd(lr, momentum, nesterov)``. With momentum its state is
 optax's ``TraceState`` (the trace by parameter name):
@@ -107,10 +112,42 @@ def restore_opt_state(state: OptState, saved: dict) -> bool:
     return True
 
 
+class DeviceBiasCorrection:
+    """Adam's two bias corrections as f32 scalars on ``device``, written by
+    the host before each step (``write``) and read by the update
+    (``divide``), so that a captured update divides by each step's own.
+    ``torch._foreach_div`` by a host float multiplies by the float's
+    reciprocal, rounded to f32, on CUDA, and divides by the float rounded to
+    f32 on the CPU; the scalars hold what each device uses and ``divide``
+    applies it alike, so both forms give the same bits. Graphs run only on
+    a card; the CPU's reading is there for the CPU tests of the graphed
+    step's policy (``tests/test_torch_port_graphs.py``), which run it
+    through a stand-in graph."""
+
+    def __init__(self, device: torch.device):
+        self.reciprocal = device.type == "cuda"
+        self.values = [torch.zeros((), dtype=torch.float32, device=device)
+                       for _ in range(2)]
+
+    def write(self, bc1: float, bc2: float) -> None:
+        for t, v in zip(self.values, (bc1, bc2)):
+            t.fill_(1.0 / v if self.reciprocal else v)
+
+    def divide(self, tensors: List[torch.Tensor], i: int
+               ) -> List[torch.Tensor]:
+        """``tensors`` over bias correction ``i`` (0: b1's, 1: b2's)."""
+        op = torch._foreach_mul if self.reciprocal else torch._foreach_div
+        return op(tensors, self.values[i])
+
+
 class Adam:
     def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def bias_corrections(self, count: int) -> Tuple[float, float]:
+        """(1 - b1^n, 1 - b2^n) after ``count`` = n updates."""
+        return 1.0 - self.b1 ** count, 1.0 - self.b2 ** count
 
     @staticmethod
     def init(params: Dict[str, torch.Tensor]) -> AdamState:
@@ -120,8 +157,12 @@ class Adam:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamState,
-               params: Dict[str, torch.Tensor]) -> AdamState:
-        """Applies one step to ``params`` and ``state`` in place."""
+               params: Dict[str, torch.Tensor],
+               corrections: Optional[DeviceBiasCorrection] = None
+               ) -> AdamState:
+        """Applies one step to ``params`` and ``state`` in place; with
+        ``corrections`` (a graph-replayed step's) the bias corrections are
+        read from the device instead of computed from ``state.count``."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
@@ -132,12 +173,15 @@ class Adam:
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
         # optax divides each moment by its bias correction in f32
-        bc1 = 1.0 - self.b1 ** count
-        bc2 = 1.0 - self.b2 ** count
-        denom = torch._foreach_div(nu, bc2)
+        if corrections is None:
+            bc1, bc2 = self.bias_corrections(count)
+            denom = torch._foreach_div(nu, bc2)
+        else:
+            denom = corrections.divide(nu, 1)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu, bc1)
+        step = (torch._foreach_div(mu, bc1) if corrections is None
+                else corrections.divide(mu, 0))
         torch._foreach_div_(step, denom)
         torch._foreach_add_(p, step, alpha=-self.lr)
         state.count = count

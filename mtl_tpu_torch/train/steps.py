@@ -52,7 +52,8 @@ The meta step's phases are the program's spans (``utils/trace.py``):
 ``meta.step`` around ``meta.query_features``, then per task
 ``meta.support_fwd``, ``meta.support_grad``, ``meta.inner_sgd``,
 ``meta.query_fwd`` and ``meta.query_grad``, then ``meta.outer``; the same
-names in second order.
+names in second order. On a card the meta trainers replay the first-order
+step as CUDA graphs (``graphs.py``), whose replays open none of them.
 
 Parameters are the model's own f32 ``nn.Parameter``s; the adapted weights
 enter the forward through ``torch.func.functional_call``. A step updates
@@ -98,6 +99,7 @@ otherwise.
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -441,7 +443,8 @@ def make_joint_step(model: torch.nn.Module, cfg: Config, optimizer,
 
 def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
                    per_task_query: bool = False, head=None,
-                   space_id: Optional[int] = None, mesh=None) -> Callable:
+                   space_id: Optional[int] = None, mesh=None,
+                   bias_corrections=None) -> Callable:
     """One meta iteration, first order or (``cfg.train.second_order``)
     second order. ``step(state, support, query,
     generator, beta)``: ``support`` holds tensors with a leading task axis
@@ -463,7 +466,11 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
 
     On a ``mesh``, ``support`` is this rank's ``[K / task, B / data]``
     slice and ``query`` its ``[B / data]`` slice (MAML: ``[K / task, B /
-    data]``); the metrics are the global batch's on every rank."""
+    data]``); the metrics are the global batch's on every rank.
+
+    ``bias_corrections`` (``optim.DeviceBiasCorrection``) goes to the outer
+    Adam's ``update``: the step that ``graphs.GraphedMetaStep`` captures
+    reads them from the device."""
     second_order = cfg.train.second_order
     if cfg.train.copy_grad and second_order:
         raise ValueError("--copy-grad (first-order) contradicts "
@@ -475,6 +482,10 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
     forward = make_forward_fn(model, cfg, mesh)
     inner_lr, clip, max_norm = cfg.train.lr, cfg.train.clip, cfg.train.max_norm
     with_cer = cfg.train.device_cer and head is None
+    outer_update = outer_optimizer.update
+    if bias_corrections is not None:
+        outer_update = functools.partial(outer_update,
+                                         corrections=bias_corrections)
     if head is not None:
         head.on_mesh(mesh)
 
@@ -575,8 +586,8 @@ def make_meta_step(model: torch.nn.Module, cfg: Config, outer_optimizer,
             gsum, dsum = gsum[:len(params)], gsum[len(params):]
             if clip:
                 gsum = _clip_tree(gsum, max_norm, tp=tp)
-            outer_optimizer.update(dict(zip(names, gsum)), state.opt_state,
-                                   state.params)
+            outer_update(dict(zip(names, gsum)), state.opt_state,
+                         state.params)
             _merge_batch_stats(model, stats, mesh)
             s_hyp = torch.stack([a["hyp"] for a in s_aux])
             s_gold = torch.stack([a["gold"] for a in s_aux])

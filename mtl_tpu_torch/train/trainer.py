@@ -91,6 +91,7 @@ from ..utils.metrics import calculate_cer_batch
 from ..utils.params import compute_num_params
 from ..utils.precision import strict_f32
 from ..utils.trace import span
+from .graphs import GraphedMetaStep, graphs_engage
 from .optim import (make_epoch_optimizer, make_joint_optimizer,
                     make_meta_optimizers, opt_state_fits, restore_opt_state)
 from .steps import (TrainState, _clip_tree, batch_to_device,
@@ -650,7 +651,10 @@ class _IterationProfiler:
 class TransientTrainer(TrainerBase):
     """Meta-transfer trainer (transient_trainer.py:79-377): the meta step
     (first or second order) with the shared code-switched query, outer Adam
-    at ``meta_lr``."""
+    at ``meta_lr``. Where ``graphs.graphs_engage`` says so (a card, one
+    process, first order, no head, no remat), the step is a
+    ``GraphedMetaStep``: eager at a batch shape's first sighting, a CUDA
+    graph replayed from the second."""
 
     per_task_query = False
 
@@ -676,6 +680,9 @@ class TransientTrainer(TrainerBase):
             return make_meta_step_disc(self.model, self.discriminator,
                                        self.cfg, opt, self.per_task_query,
                                        mesh=self.mesh)
+        if graphs_engage(self.device, self.cfg, self.mesh):
+            return GraphedMetaStep(self.model, self.cfg, opt, self.device,
+                                   self.per_task_query, space_id=self.space_id)
         return make_meta_step(self.model, self.cfg, opt, self.per_task_query,
                               space_id=self.space_id, mesh=self.mesh)
 
@@ -686,12 +693,16 @@ class TransientTrainer(TrainerBase):
             per_task_query=self.per_task_query, rng=rng)
 
     def run_step(self, step_fn, state, batch, generator, beta):
-        # the shared query is sharded over data, MAML's over (task, data)
-        with span("train.to_device"):
-            support, query = [
-                batch_to_device(self._shard(b, task_axis), self.device)
-                for b, task_axis in zip(batch, (True, self.per_task_query))]
-        state, m = step_fn(state, support, query, generator, beta)
+        if isinstance(step_fn, GraphedMetaStep):  # it takes the host batch
+            state, m = step_fn(state, *batch, generator, beta)
+        else:
+            # the shared query is sharded over data, MAML's over (task, data)
+            with span("train.to_device"):
+                support, query = [
+                    batch_to_device(self._shard(b, task_axis), self.device)
+                    for b, task_axis in zip(batch,
+                                            (True, self.per_task_query))]
+            state, m = step_fn(state, support, query, generator, beta)
         return (state, m["outer_loss"], m["support_hyp"], m["support_gold"],
                 m)
 

@@ -40,7 +40,12 @@ card (equal loss and generator state, gradients within 2^-8 of the
 largest, at dropout 0.1, bf16); a meta step on a 2-rank gloo mesh sharing
 the card against the step in one process (gradients within 1e-4 of the
 largest), and the sequence-parallel encode over 2 ranks on the card
-against the unsharded encode.
+against the unsharded encode; the meta step replayed as CUDA graphs
+(``train/graphs.py``) against the eager step over seven steps of three
+shape keys (the shared query and ``per_task_query`` on the VGG kernels,
+emb_cnn's running statistics), bit-equal or within one bf16 ulp of the
+largest element, its launch counts (each replay counted once, its kernels
+at the capture) the eager step's.
 Tolerances:
 both STFT routes are f32 against the f32 plain version; the FFT and the
 GEMM sum in other orders (rtol/atol 1e-4). The VGG f32 routes differ from
@@ -997,12 +1002,12 @@ def _small_cfg(encoder="transformer", dtype="float32", dropout=0.0):
     return cfg.finalize()
 
 
-def _audio_batches(k, b=2, samples=6400, seed=0):
+def _audio_batches(k, b=2, samples=6400, seed=0, labels=6):
     rng = np.random.RandomState(seed)
     return {"audio": torch.from_numpy(
                 (rng.randn(k, b, samples + 320) * 0.1).astype(np.float32)),
             "audio_lengths": torch.tensor([[samples, samples - 1600]] * k),
-            "targets": torch.from_numpy(rng.randint(3, 20, (k, b, 6))),
+            "targets": torch.from_numpy(rng.randint(3, 20, (k, b, labels))),
             "src_percentages": torch.ones(k, b)}
 
 
@@ -1185,3 +1190,124 @@ def test_encode_sp_on_the_card_matches_the_unsharded_encode(dev, dtype):
     suffix = "" if dtype == "bfloat16" else "_f32"
     assert all(c[f"vgg_block1{suffix}"] == c[f"vgg_block2{suffix}"] == 1
                for c in got["sp_counts"]), got["sp_counts"]
+
+
+# -- the graph-replayed meta step ----------------------------------------------
+
+def _graph_run(dev, cfg, per_task_query, graphed, keys):
+    """(metrics by step, state, model, generator, launch counts) of meta
+    steps over ``keys`` (seed, samples, labels) from seeded weights: the
+    eager step on the caller's stream, or ``GraphedMetaStep`` on host
+    batches."""
+    from mtl_tpu_torch.models.transformer import build_model, init_weights
+    from mtl_tpu_torch.train.graphs import GraphedMetaStep
+    from mtl_tpu_torch.train.optim import Adam
+    from mtl_tpu_torch.train.steps import (batch_to_device, init_train_state,
+                                           make_meta_step)
+
+    model = build_model(cfg, 20, dev)
+    init_weights(model, torch.Generator().manual_seed(0))
+    opt = Adam(1e-3)
+    state = init_train_state(model, opt)
+    if graphed:
+        step = GraphedMetaStep(model, cfg, opt, dev, per_task_query,
+                               space_id=3)
+    else:
+        step = make_meta_step(model, cfg, opt, per_task_query, space_id=3)
+    gen = torch.Generator(dev).manual_seed(3)
+    native.reset_launch_counts()
+    out = []
+    for seed, samples, labels in keys:
+        support = _audio_batches(3, samples=samples, seed=seed,
+                                 labels=labels)
+        query = _audio_batches(3 if per_task_query else 1, samples=samples,
+                               seed=seed + 100, labels=labels)
+        if not per_task_query:
+            query = {k: v[0] for k, v in query.items()}
+        if graphed:
+            batches = [{k: v.numpy() for k, v in b.items()}
+                       for b in (support, query)]
+        else:
+            batches = [batch_to_device(b, dev) for b in (support, query)]
+        state, metrics = step(state, *batches, gen)
+        out.append(metrics)
+    torch.cuda.synchronize()
+    counts = dict(native.launch_counts)
+    if graphed:
+        assert sorted(step.sightings.values()) == [1, 3, 3], step.sightings
+        assert len(step.entries) == 2
+        # each replay after its capture's own launches the capture's kernels
+        assert [e.replays for e in step.entries.values()] == [2, 2]
+        for e in step.entries.values():
+            for k, n in e.launches.items():
+                counts[k] += n * (e.replays - 1)
+        assert (counts.pop("meta_graph_captures"),
+                counts.pop("meta_graph_replays")) == (2, 4)
+    return out, state, model, gen, counts
+
+
+@pytest.mark.parametrize("per_task_query,feat_extractor",
+                         [(False, "vgg_cnn"), (True, "vgg_cnn"),
+                          (False, "emb_cnn")])
+def test_graphed_meta_step_on_the_card_matches_the_eager_step(
+        dev, monkeypatch, per_task_query, feat_extractor):
+    """bf16, dropout 0.1, the inner clip on, ``--device-cer``: the meta step
+    replayed as CUDA graphs (keys A, A, B, B, A, C, B: B's graph captured
+    after A's into the shared pool, A replayed after B, C seen once and
+    run eagerly) against the eager step on the same batches from the same
+    weights and generator seed. Every step's metrics, the weights, Adam's
+    moments and count, the step counter, emb_cnn's running statistics and
+    the generator state after the last step: floats bit-equal or within
+    2^-8 of the largest element (one bf16 ulp of it, where a library picks
+    another algorithm under capture), integers and the generator equal.
+    The kernel launches (those counted at the eager steps and the captures,
+    and each capture's again for every later replay of its graph) are the
+    eager run's; 2 captures and 4 replays are counted. cuDNN runs its
+    deterministic algorithms in both runs: the VGG backward's f32 weight
+    gradients otherwise differ from one eager run to the next, and Adam
+    turns a gradient near zero that changes sign into a step of 2 lr."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = _small_cfg(dtype="bfloat16", dropout=0.1)
+    cfg.model.feat_extractor = feat_extractor
+    cfg.train.device_cer = True
+    cfg.finalize()
+    a, b, c = (6400, 6), (9600, 10), (8000, 6)
+    keys = [(1, *a), (2, *a), (3, *b), (4, *b), (5, *a), (6, *c), (7, *b)]
+    want, s0, m0, g0, c0 = _graph_run(dev, cfg, per_task_query, False, keys)
+    for k in ("meta_graph_captures", "meta_graph_replays"):
+        assert c0.pop(k) == 0
+    got, s1, m1, g1, c1 = _graph_run(dev, cfg, per_task_query, True, keys)
+
+    def close(w, g, what):
+        w, g = w.detach(), g.detach()
+        if not w.is_floating_point():
+            assert torch.equal(w, g), what
+            return
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g, w, rtol=0, atol=2.0 ** -8 * scale,
+                                   msg=what)
+
+    exact = True
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert set(w) == set(g)
+        for k in w:
+            close(w[k], g[k], f"step {i + 1} {k}")
+            exact &= torch.equal(w[k], g[k])
+    assert (s1.step, s1.opt_state.count) == (s0.step, s0.opt_state.count) \
+        == (len(keys), len(keys))
+    for n in s0.params:
+        for group, w, g in (("param", s0.params, s1.params),
+                            ("mu", s0.opt_state.mu, s1.opt_state.mu),
+                            ("nu", s0.opt_state.nu, s1.opt_state.nu)):
+            close(w[n], g[n], f"{group} {n}")
+            exact &= torch.equal(w[n], g[n])
+    stats = [[t for pair in m.conv.batch_stats() for t in pair]
+             for m in (m0, m1)]
+    assert len(stats[0]) == (4 if feat_extractor == "emb_cnn" else 0)
+    for w, g in zip(*stats):
+        close(w, g, "running statistics")
+        exact &= torch.equal(w, g)
+    assert torch.equal(g0.get_state(), g1.get_state())
+    assert c0 == c1, (c0, c1)
+    print(f"graphed against eager, {per_task_query=} {feat_extractor}: "
+          f"bit-equal {exact}")

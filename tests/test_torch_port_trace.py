@@ -7,7 +7,9 @@ torch.profiler each span is a ``record_function`` range nested as in the
 program, and keeps totals only when enabled too. One tiny meta step (K 2, first and second order) opens each
 per-task span K times and ``meta.step``, ``meta.query_features`` and
 ``meta.outer`` once, and its outputs and updated weights are bitwise those
-of the step with tracing off. ``greedy_loop`` opens a ``greedy.step`` and a
+of the step with tracing off. The graph-replayed meta step opens
+``meta.graph_capture`` once and ``meta.graph_replay`` a replay, and nothing
+with tracing off. ``greedy_loop`` opens a ``greedy.step`` and a
 ``greedy.done_sync`` a step it ran, an early EOS stop too; the prefetchers
 open ``data.wait`` in the caller, and a fetch's own spans stay on its
 worker's stack. ``cli/breakdown.py`` puts each kernel's device ms down to
@@ -228,6 +230,54 @@ def test_meta_step_is_bitwise_the_same_traced(second_order):
     for key in m_off:
         assert torch.equal(m_on[key], m_off[key]), key
     assert all(torch.equal(w_on[n], w_off[n]) for n in w_off)
+
+
+class _StandInGraph:
+    """``train/graphs.py``'s graph on the CPU, for counting spans: the
+    capture runs the step, and a replay, like a CUDA graph's, runs no
+    Python of the step (here nothing at all)."""
+
+    def __init__(self, pool, generator):
+        pass
+
+    def capture(self, fn):
+        return fn()
+
+    def replay(self):
+        pass
+
+
+def test_graph_spans_are_no_ops_off_and_counted_enabled():
+    """The graphed meta step over three sightings of one key: with tracing
+    off no totals; enabled, one ``meta.graph_capture``, two
+    ``meta.graph_replay`` (the capture's step and the third), and
+    ``meta.step`` twice (the eager first sighting and the capture)."""
+    from mtl_tpu_torch.train.graphs import GraphedMetaStep
+
+    cfg = _cfg(False)
+    model = build_model(cfg, VOCAB)
+    init_weights(model, torch.Generator().manual_seed(0))
+    opt = Adam(cfg.train.meta_lr)
+    state = init_train_state(model, opt)
+    step = GraphedMetaStep(model, cfg, opt, torch.device("cpu"),
+                           new_graph=_StandInGraph)
+    query = {key: v[0] for key, v in _batches(2, 1).items()}
+    for traced in (False, True):
+        trace.reset()
+        if traced:
+            trace.enable()
+        step.sightings.clear()
+        step.entries.clear()
+        for _ in range(3):
+            state, _ = step(state, _batches(1, K), query)
+        trace.disable()
+        counts = {k: t.count for k, t in trace.totals().items()
+                  if k.startswith("meta.")}
+        assert counts == ({} if not traced else {
+            "meta.graph_capture": 1, "meta.graph_replay": 2, "meta.step": 2,
+            "meta.query_features": 2, "meta.outer": 2,
+            **{name: 2 * K for name in PER_TASK}})
+    assert state.step == 6
 
 
 class _Decoder:
