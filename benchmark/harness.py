@@ -9,7 +9,12 @@ sit in files of their own, found by name:
 * ``configs/<config>.json``, ``traffic/<traffic>.json``;
 * ``drivers/<traffic's driver>.py`` (``run(cell) -> Outcome``);
 * ``metrics/<metric>.py`` (``read(trace) -> float | None``);
-* ``limits/<workload>.json``: the limits of the correctness check.
+* ``limits/<workload>.json``: the limits of the correctness check;
+* ``reference/encoders/<config's encoder_type>.py``: the encoder's
+  parameter shapes, plain reference and FLOP count, which
+  ``reference/params.py``, ``reference/model.py`` and ``roofline.py``
+  take from it. A configuration's own kernel counts may sit there or in
+  a module beside it, for its metric readers to import.
 
 Frozen from ``chip_smoke.py``: ``busy_ms`` (the union of the device
 kernels' intervals) and ``KERNEL_GROUPS`` (a kernel's group by name).

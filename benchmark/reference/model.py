@@ -14,13 +14,8 @@ The model (reference README.md:47-61, the repository's PARITY.md quirks):
   std over the valid frames (rsqrt(var + 1e-12)), padded frames zero;
 * VGG: two blocks of conv3x3 -> ReLU -> conv3x3 -> ReLU -> 2x2 max-pool in
   the (freq, time) geometry, flattened freq-major;
-* Transformer encoder: input linear, LayerNorm (eps 1e-5), sinusoidal PE,
-  then layers of post-LN rank-r factorized attention and FFN, each output
-  times the pad mask built from the *raw* frame counts against the
-  subsampled time axis;
-* Conformer encoder: input linear, dropout, blocks of macaron FFN halves,
-  RoPE attention, the convolution module (pw1, GLU, pad mask, depthwise
-  conv, LayerNorm, swish, pw2), pre-LN with eps 1e-6, a final LayerNorm;
+* encoder: ``encoders/<encoder_type>.py``'s ``forward`` on the VGG output,
+  built from the blocks below;
 * decoder: embedding (PAD row zero) + PE + dropout, layers of masked
   self-attention, cross-attention and FFN with the EOS pad mask, output
   projection without bias; greedy serving attends causally over its own
@@ -40,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .encoders import load
 
 PAD, SOS, EOS = 0, 1, 2
 FP8_MAX, FP8_E5M2_MAX = 448.0, 57344.0
@@ -96,6 +93,7 @@ class Reference:
         self.p = config["dropout"]
         self.n_fft = int(config["sample_rate"] * config["window_size"])
         self.hop = int(config["sample_rate"] * config["window_stride"])
+        self.encoder = load(config["encoder_type"])
 
     # -- building blocks -------------------------------------------------
     def drop(self, x, gen):
@@ -176,7 +174,7 @@ class Reference:
         b, c, f, t = y.shape
         return y.permute(0, 3, 2, 1).reshape(b, t, f * c)
 
-    # -- encoders --------------------------------------------------------
+    # -- attention and FFN, shared by the encoders and the decoder -----
     def mha(self, W, name, x_q, x_kv, mask, gen):
         h, dk = self.c["num_heads"], self.c["dim_key"]
         dv = self.c["dim_value"]
@@ -199,75 +197,11 @@ class Reference:
         pad = pos >= lengths[:, None]
         return (~pad).float()[..., None], pad
 
-    def transformer_encoder(self, W, x, lengths, gen):
-        t = x.shape[1]
-        npm, pad = self.pad_masks(lengths, t)
-        mask = pad[:, None, :].expand(x.shape[0], t, t)
-        h = self.ln(W, "encoder.layer_norm_input",
-                    self.dense(W, "encoder.input_linear", x), 1e-5)
-        h = h + self.sinusoid(t, h.shape[-1], h.device)
-        for i in range(self.c["num_enc_layers"]):
-            name = f"encoder.layers.{i}"
-            h = self.mha(W, name + ".self_attn", h, h, mask, gen) * npm
-            h = self.ffn(W, name + ".pos_ffn", h, gen) * npm
-        return h
-
-    def conformer_ffn(self, W, name, x, gen):
-        h = self.lin(W, name + ".Dense_0",
-                     self.ln(W, name + ".LayerNorm_0", x, 1e-6))
-        h = self.drop(F.silu(h), gen)
-        return self.drop(self.lin(W, name + ".Dense_1", h), gen)
-
-    def conformer_attn(self, W, name, x, mask, gen):
-        b, t, d = x.shape
-        h = self.c["num_heads"]
-        y = self.ln(W, name + ".LayerNorm_0", x, 1e-6)
-        q, k, v = (self.lin(W, f"{name}.{n}", y).view(b, t, h, d // h)
-                   for n in "qkv")
-        dh = d // h
-        inv = 1.0 / (10000.0 ** (np.arange(0, dh, 2, dtype=np.float64) / dh))
-        ang = torch.from_numpy((np.arange(t, dtype=np.float64)[:, None]
-                                * inv[None, :]).astype(np.float32)).to(x.device)
-        cos, sin = torch.cos(ang)[None, :, None], torch.sin(ang)[None, :, None]
-
-        def rope(z):
-            z1, z2 = z[..., :dh // 2], z[..., dh // 2:]
-            return torch.cat([z1 * cos - z2 * sin, z1 * sin + z2 * cos], -1)
-
-        ctx = self.attention(rope(q), rope(k), v, mask, gen)
-        return self.drop(self.lin(W, name + ".out", ctx), gen)
-
-    def conformer_conv(self, W, name, x, npm, gen):
-        h = self.lin(W, name + ".pw1",
-                     self.ln(W, name + ".LayerNorm_0", x, 1e-6))
-        a, g = h.chunk(2, dim=-1)
-        h = (a * torch.sigmoid(g)) * npm
-        w = W[name + ".dw.weight"]
-        h = F.conv1d(self.q(h).transpose(1, 2), self.q(w), W[name + ".dw.bias"],
-                     padding=(w.shape[-1] - 1) // 2, groups=w.shape[0])
-        h = F.silu(self.ln(W, name + ".norm", h.transpose(1, 2), 1e-6))
-        return self.drop(self.lin(W, name + ".pw2", h), gen)
-
-    def conformer_encoder(self, W, x, lengths, gen):
-        t = x.shape[1]
-        npm, pad = self.pad_masks(lengths, t)
-        mask = pad[:, None, :].expand(x.shape[0], t, t)
-        h = self.drop(self.lin(W, "encoder.input_linear", x), gen)
-        for i in range(self.c["num_enc_layers"]):
-            name = f"encoder.blocks.{i}"
-            h = h + 0.5 * self.conformer_ffn(W, name + ".ff1", h, gen)
-            h = h + self.conformer_attn(W, name + ".attn", h, mask, gen)
-            h = h + self.conformer_conv(W, name + ".conv", h, npm, gen)
-            h = h + 0.5 * self.conformer_ffn(W, name + ".ff2", h, gen)
-            h = h * npm
-        return self.ln(W, "encoder.final_norm", h, 1e-6) * npm
-
+    # -- encoder ---------------------------------------------------------
     def encode(self, W, audio, lengths, gen=None):
         feats, n_frames = self.features(audio, lengths)
         x = self.vgg(W, feats)
-        enc = (self.conformer_encoder if self.c["encoder_type"] == "conformer"
-               else self.transformer_encoder)
-        return enc(W, x, n_frames, gen), n_frames
+        return self.encoder.forward(self, W, x, n_frames, gen), n_frames
 
     # -- decoder ---------------------------------------------------------
     def embed(self, W, seq):

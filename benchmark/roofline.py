@@ -16,13 +16,17 @@ convolutions, every linear, the attention products and the output
 projection at the padded shapes a step runs; a training step's backward
 counts twice its forward (one product for the input's gradient, one for
 the weight's), except the first convolution, whose input needs none, and
-nothing recomputed counts again.
+nothing recomputed counts again. The encoder's forward is counted by
+``reference/encoders/<encoder_type>.py`` (``encoder_flops``), from
+``lin``, ``dense``, ``mha``, ``ffn`` and ``vgg_out``.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict
+
+from reference.encoders import load
 
 PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 VGG_CHANNELS = (64, 128)
@@ -81,15 +85,15 @@ def stft_bound_s(b: int, t: int, n_fft: int, hop: int) -> float:
 
 # -- model FLOPs -------------------------------------------------------------
 
-def _lin(rows: int, n_in: int, n_out: int) -> float:
+def lin(rows: int, n_in: int, n_out: int) -> float:
     return 2.0 * rows * n_in * n_out
 
 
-def _dense(c: dict, rows: int, n_in: int, n_out: int,
-           factorized: bool) -> float:
+def dense(c: dict, rows: int, n_in: int, n_out: int,
+          factorized: bool) -> float:
     if factorized:
-        return _lin(rows, n_in, c["r"]) + _lin(rows, c["r"], n_out)
-    return _lin(rows, n_in, n_out)
+        return lin(rows, n_in, c["r"]) + lin(rows, c["r"], n_out)
+    return lin(rows, n_in, n_out)
 
 
 def vgg_flops(c: dict, b: int, t: int) -> Dict[str, float]:
@@ -103,51 +107,45 @@ def vgg_flops(c: dict, b: int, t: int) -> Dict[str, float]:
     return {"first": first, "rest": rest}
 
 
-def _mha(c: dict, b: int, tq: int, tk: int, kv_rows: int = -1) -> float:
+def mha(c: dict, b: int, tq: int, tk: int, kv_rows: int = -1) -> float:
     """Projections of the queries and of ``kv_rows`` keys and values a row
     (default all ``tk``), the scores, the context and the output
     projection."""
     d, h = c["dim_model"], c["num_heads"]
     dk, dv = c["dim_key"], c["dim_value"]
     kv = tk if kv_rows < 0 else kv_rows
-    fl = _dense(c, b * tq, d, h * dk, True)
+    fl = dense(c, b * tq, d, h * dk, True)
     if kv:
-        fl += (_dense(c, b * kv, d, h * dk, True)
-               + _dense(c, b * kv, d, h * dv, True))
+        fl += (dense(c, b * kv, d, h * dk, True)
+               + dense(c, b * kv, d, h * dv, True))
     fl += 2.0 * b * h * tq * tk * (dk + dv)
-    return fl + _dense(c, b * tq, h * dv, d, True)
+    return fl + dense(c, b * tq, h * dv, d, True)
 
 
-def _ffn(c: dict, rows: int) -> float:
+def ffn(c: dict, rows: int) -> float:
     f = c["is_factorized"]
-    return (_dense(c, rows, c["dim_model"], c["dim_inner"], f)
-            + _dense(c, rows, c["dim_inner"], c["dim_model"], f))
+    return (dense(c, rows, c["dim_model"], c["dim_inner"], f)
+            + dense(c, rows, c["dim_inner"], c["dim_model"], f))
+
+
+def vgg_out(c: dict, t: int):
+    """(frames, width) of the VGG output of T feature frames."""
+    f = int(c["sample_rate"] * c["window_size"]) // 2 + 1
+    return t // 4, (f // 4) * VGG_CHANNELS[-1]
 
 
 def encoder_flops(c: dict, b: int, t: int) -> float:
-    """The encoder on the VGG output [B, T // 4, (F // 4) * 128]."""
-    tt = t // 4
-    f = int(c["sample_rate"] * c["window_size"]) // 2 + 1
-    d_in = (f // 4) * VGG_CHANNELS[-1]
-    d = c["dim_model"]
-    if c["encoder_type"] == "conformer":
-        e = c["ff_expansion"]
-        block = (2 * (_lin(b * tt, d, e * d) + _lin(b * tt, e * d, d))
-                 + 4 * _lin(b * tt, d, d) + 2.0 * b * tt * tt * 2 * d
-                 + _lin(b * tt, d, 2 * d) + 2.0 * b * tt * d * c["conv_kernel"]
-                 + _lin(b * tt, d, d))
-        return _lin(b * tt, d_in, d) + c["num_enc_layers"] * block
-    block = _mha(c, b, tt, tt) + _ffn(c, b * tt)
-    return (_dense(c, b * tt, d_in, d, c["is_factorized"])
-            + c["num_enc_layers"] * block)
+    """The encoder on the VGG output [B, T // 4, (F // 4) * 128], as
+    ``reference/encoders/<encoder_type>.py`` counts it."""
+    return load(c["encoder_type"]).flops(c, b, t)
 
 
 def decoder_flops(c: dict, vocab: int, b: int, t: int, l: int) -> float:
     """The teacher-forced decoder over L positions against T // 4 frames,
     with the output projection."""
     tt = t // 4
-    layer = _mha(c, b, l, l) + _mha(c, b, l, tt) + _ffn(c, b * l)
-    return c["num_dec_layers"] * layer + _lin(b * l, c["dim_model"], vocab)
+    layer = mha(c, b, l, l) + mha(c, b, l, tt) + ffn(c, b * l)
+    return c["num_dec_layers"] * layer + lin(b * l, c["dim_model"], vocab)
 
 
 def forward_flops(c: dict, vocab: int, b: int, t: int, l: int) -> float:
@@ -182,11 +180,11 @@ def decode_flops(c: dict, vocab: int, b: int, t: int, steps: int) -> float:
     dk, dv = c["dim_key"], c["dim_value"]
     v = vgg_flops(c, b, t)
     fl = v["first"] + v["rest"] + encoder_flops(c, b, t)
-    fl += c["num_dec_layers"] * (_dense(c, b * tt, d, h * dk, True)
-                                 + _dense(c, b * tt, d, h * dv, True))
+    fl += c["num_dec_layers"] * (dense(c, b * tt, d, h * dk, True)
+                                 + dense(c, b * tt, d, h * dv, True))
     for s in range(steps):
-        self_attn = _mha(c, b, 1, s + 1, kv_rows=1)
-        cross = _mha(c, b, 1, tt, kv_rows=0)
-        fl += c["num_dec_layers"] * (self_attn + cross + _ffn(c, b))
-        fl += _lin(b, d, vocab)
+        self_attn = mha(c, b, 1, s + 1, kv_rows=1)
+        cross = mha(c, b, 1, tt, kv_rows=0)
+        fl += c["num_dec_layers"] * (self_attn + cross + ffn(c, b))
+        fl += lin(b, d, vocab)
     return fl

@@ -19,6 +19,7 @@ def _bench():
 
 
 WORKLOADS = [w["name"] for w in _bench()["workloads"]]
+CONFIGS = [c["file"] for c in _bench()["configs"]]
 PER_LAYER = [m["name"] for m in _bench()["per_layer"]]
 
 
@@ -44,6 +45,19 @@ def test_cell_lookup(workload, bench):
     assert "setup_s" in e2e and len(e2e) >= 2
     assert any(workload in m.get("workloads", [workload])
                for m in bench["per_layer"])
+
+
+@pytest.mark.parametrize("file", CONFIGS)
+def test_config_finds_its_encoder(file):
+    from reference import encoders
+
+    with open(os.path.join(ROOT, file), encoding="utf-8") as f:
+        encoder_type = json.load(f)["encoder_type"]
+    assert os.path.isfile(os.path.join(BENCH, "reference", "encoders",
+                                       encoder_type + ".py"))
+    enc = encoders.load(encoder_type)
+    assert all(callable(getattr(enc, fn, None))
+               for fn in ("param_shapes", "forward", "flops"))
 
 
 @pytest.mark.parametrize("metric", PER_LAYER)
