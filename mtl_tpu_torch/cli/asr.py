@@ -19,7 +19,9 @@
 * the trainers take the adversarial or multitask discriminator head with
   ``--adversarial`` / ``--multitask`` (``--beta-decay``, ``--lr-disc``,
   ``--num-class``);
-* every entry point takes ``--encoder-type conformer`` and every trainer
+* every entry point takes ``--encoder-type conformer`` or
+  ``e_branchformer`` (``--linear-units``, ``--cgmlp-linear-units``,
+  ``--cgmlp-conv-kernel``, ``--merge-conv-kernel``) and every trainer
   ``--remat`` / ``--remat-conv``;
 * ``test_main`` — test.py: greedy or beam decode (``--beam-search``,
   optionally with LM shallow fusion, ``--lm-rescoring --lm-path``) of the
@@ -32,8 +34,9 @@ The trainers take ``--mesh-task`` / ``--mesh-data`` / ``--mesh-model``
 of the mesh of task x data x model ranks and starts the other ranks itself
 (``parallel/launch.py``); it alone prints and returns. The mesh's refusals
 (divisibility of the batch axes and of the split weights, ``--scan-tasks``,
-the epoch trainer's task axis) are raised before any rank starts, as is
-``--device cuda`` without a card.
+the epoch trainer's task axis, an encoder that tensor parallel or the
+sequence-parallel encode does not run) are raised before any rank starts,
+as is ``--device cuda`` without a card.
 """
 
 from __future__ import annotations
@@ -53,11 +56,11 @@ from ..models.subsampler import subsampled_length
 from ..models.transformer import build_model
 from ..parallel import launch, tp
 from ..parallel.mesh import requested_size
-from ..parallel.sp import greedy_search_sp
+from ..parallel.sp import check_encoder, greedy_search_sp
 from ..train.steps import prepare_features
 from ..train.trainer import (EpochTrainer, JointTrainer, MetaTrainer,
                              TransientTrainer, check_mesh, meta_evaluate)
-from ..utils.checkpoint import load_checkpoint
+from ..utils.checkpoint import load_checkpoint, load_checkpoint_meta
 from ..utils.logger import log_print
 from ..utils.metrics import calculate_cer, calculate_cer_en_zh, calculate_wer
 from .common import (build_datasets, build_vocab, load_asr_model,
@@ -200,6 +203,9 @@ def test_main(argv=None):
         raise ValueError(
             "--mesh-model (sequence-parallel encode) currently supports "
             "greedy decode only; drop --beam-search or --mesh-model")
+    if cfg.continue_from:
+        check_encoder(load_checkpoint_meta(cfg.continue_from)[0]
+                      .model.encoder_type)
     cfg.mesh.task = 1  # the sequence-parallel mesh: data x model
     return launch.run(cfg, device, _test, args)
 

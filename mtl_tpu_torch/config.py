@@ -78,11 +78,18 @@ class ModelConfig:
     r: int = 100
     # TPU-native knobs (no reference equivalent)
     dtype: str = "bfloat16"  # compute dtype; params stay float32
-    encoder_type: str = "transformer"  # transformer | conformer (stretch)
+    encoder_type: str = "transformer"  # transformer | conformer | e_branchformer
     remat: bool = False  # jax.checkpoint over encoder layers
     remat_conv: bool = False  # recompute conv activations in backward:
     # the flagship step is HBM-bound on full-resolution vgg activations
     # (BASELINE.md roofline) — remat trades cheap FLOPs for that traffic
+    # e_branchformer only, named and defaulted as ESPnet's
+    # EBranchformerEncoder: the macaron FFNs' hidden width, the cgMLP's
+    # (value and gate halves), the gate's and the merge's depthwise kernels
+    linear_units: int = 2048
+    cgmlp_linear_units: int = 2048
+    cgmlp_conv_kernel: int = 31
+    merge_conv_kernel: int = 3
     fused_vgg: bool | None = None  # channel-leading Pallas VGG kernels
     # (opt-in --fused-vgg; measured slower end-to-end than XLA convs on v5e,
     # kept for the decode-only path and further kernel iteration)
@@ -372,7 +379,16 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                         "always run the CUDA kernels on a CUDA device")
     p.add_argument("--no-fused-vgg", dest="fused_vgg", action="store_false")
     p.add_argument("--encoder-type", default="transformer", type=str,
-                   help="transformer (reference parity) | conformer (stretch)")
+                   help="transformer (reference parity) | conformer | "
+                        "e_branchformer (E-Branchformer, arXiv:2210.00077)")
+    p.add_argument("--linear-units", default=2048, type=int,
+                   help="e_branchformer: the macaron FFNs' hidden width")
+    p.add_argument("--cgmlp-linear-units", default=2048, type=int,
+                   help="e_branchformer: the cgMLP's width (value + gate)")
+    p.add_argument("--cgmlp-conv-kernel", default=31, type=int,
+                   help="e_branchformer: the cgMLP gate's depthwise kernel")
+    p.add_argument("--merge-conv-kernel", default=3, type=int,
+                   help="e_branchformer: the merge's depthwise kernel")
     p.add_argument("--second-order", action="store_true")
     p.add_argument("--scan-tasks", dest="scan_tasks", default=None,
                    action="store_true",
@@ -443,6 +459,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
             remat_conv=args.remat_conv,
             fused_vgg=args.fused_vgg,
             encoder_type=args.encoder_type,
+            linear_units=args.linear_units,
+            cgmlp_linear_units=args.cgmlp_linear_units,
+            cgmlp_conv_kernel=args.cgmlp_conv_kernel,
+            merge_conv_kernel=args.merge_conv_kernel,
         ),
         train=TrainConfig(
             loss=args.loss,

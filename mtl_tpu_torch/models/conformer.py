@@ -70,8 +70,8 @@ from .remat import checkpoint_module
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS, dtype=torch.float32)
+def _layer_norm(dim: int, eps: float = LN_EPS) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=eps, dtype=torch.float32)
 
 
 def rope_inverse_frequencies(dim: int) -> np.ndarray:
@@ -116,10 +116,11 @@ class ConformerFFN(nn.Module):
     tp = None
 
     def __init__(self, dim_model: int, expansion: int = 4,
-                 dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16,
+                 eps: float = LN_EPS):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
-        self.LayerNorm_0 = _layer_norm(dim_model)
+        self.LayerNorm_0 = _layer_norm(dim_model, eps)
         self.Dense_0 = nn.Linear(dim_model, dim_model * expansion)
         self.Dense_1 = nn.Linear(dim_model * expansion, dim_model)
 
@@ -293,6 +294,8 @@ class ConformerBlock(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """Drop-in alternative to ``encoder.Encoder`` (same call)."""
+
+    encoder_type = "conformer"
 
     def __init__(self, num_layers: int, num_heads: int, dim_model: int,
                  dim_input: int, ff_expansion: int = 4, conv_kernel: int = 31,

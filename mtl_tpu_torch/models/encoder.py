@@ -45,6 +45,8 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.Module):
+    encoder_type = "transformer"
+
     def __init__(self, num_layers: int, num_heads: int, dim_model: int,
                  dim_key: int, dim_value: int, dim_input: int, dim_inner: int,
                  dropout: float = 0.1, src_max_length: int = 2500,

@@ -2,7 +2,8 @@
 reference models/asr/transformer.py:14-240).
 
 conv subsampler -> encoder (the Transformer's, or with ``encoder_type=
-"conformer"`` the Conformer's of ``conformer.py``) -> decoder. ``forward``
+"conformer"`` the Conformer's of ``conformer.py``, with ``"e_branchformer"``
+the E-Branchformer's of ``ebranchformer.py``) -> decoder. ``forward``
 is the teacher-forced pass of training (mtl_tpu/models/transformer.py:
 101-111), with the encoder output beside the logits for the discriminator
 heads (``forward_with_encoder``, :113); decoding runs ``prepare_decode``
@@ -19,7 +20,8 @@ in the JAX package (:91-96) the front-end then runs with ``train=False``,
 so emb_cnn's BatchNorm normalizes by its running averages and reports no
 statistics. ``second_order`` picks the routes that autograd
 differentiates twice: the VGG stack's plain version (``subsampler.py``)
-and the Conformer's unfolded depthwise conv (``conformer.py``).
+and the unfolded depthwise conv (``conformer.py``) of the Conformer and
+the E-Branchformer.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..config import Config
 from ..utils.trace import span
 from .conformer import ConformerEncoder, DepthwiseConv
 from .decoder import Decoder, LayerKV
+from .ebranchformer import EBranchformerEncoder
 from .encoder import Encoder
 from .remat import checkpoint_module
 from .subsampler import FeatureExtractor
@@ -51,7 +54,9 @@ class ASRTransformer(nn.Module):
                  trg_max_length: int = 1000, is_factorized: bool = False,
                  r: int = 100, dtype: torch.dtype = torch.bfloat16,
                  encoder_type: str = "transformer", remat: bool = False,
-                 remat_conv: bool = False, second_order: bool = False):
+                 remat_conv: bool = False, second_order: bool = False,
+                 linear_units: int = 2048, cgmlp_linear_units: int = 2048,
+                 cgmlp_conv_kernel: int = 31, merge_conv_kernel: int = 3):
         super().__init__()
         self.dtype, self.dropout = dtype, dropout
         self.remat_conv = remat_conv
@@ -62,6 +67,14 @@ class ASRTransformer(nn.Module):
                 num_enc_layers, num_heads, dim_model, dim_input,
                 dropout=dropout, dtype=dtype, remat=remat,
                 second_order=second_order)
+        elif encoder_type == "e_branchformer":
+            self.encoder = EBranchformerEncoder(
+                num_enc_layers, num_heads, dim_model, dim_input,
+                linear_units=linear_units,
+                cgmlp_linear_units=cgmlp_linear_units,
+                cgmlp_conv_kernel=cgmlp_conv_kernel,
+                merge_conv_kernel=merge_conv_kernel, dropout=dropout,
+                dtype=dtype, remat=remat, second_order=second_order)
         elif encoder_type == "transformer":
             self.encoder = Encoder(
                 num_enc_layers, num_heads, dim_model, dim_key, dim_value,
@@ -149,6 +162,9 @@ def build_model(cfg: Config, vocab_size: int,
         trg_max_length=m.tgt_max_len, is_factorized=m.is_factorized, r=m.r,
         dtype=DTYPES[m.dtype], encoder_type=m.encoder_type, remat=m.remat,
         remat_conv=m.remat_conv, second_order=cfg.train.second_order,
+        linear_units=m.linear_units, cgmlp_linear_units=m.cgmlp_linear_units,
+        cgmlp_conv_kernel=m.cgmlp_conv_kernel,
+        merge_conv_kernel=m.merge_conv_kernel,
     ).to(device)
 
 

@@ -25,6 +25,10 @@ partitioner inserts in the JAX package are written out here
 * the Conformer's depthwise conv (kernel 31) takes 15 frames from each
   neighbouring slice (``neighbour_context``).
 
+The E-Branchformer (``models/ebranchformer.py``) has no route here: its
+relative-position scores and its merge conv would need their own
+exchanges, and ``check_encoder`` refuses it by name.
+
 Output slices are ``ceil(T'/M)`` encoder frames (the last rank's shorter
 when M does not divide T'), so every slice starts at a multiple of the total
 stride in input frames; T is never padded (under the raw-length mask quirk
@@ -46,6 +50,18 @@ from ..models.conformer import ConformerEncoder, rope_angles
 from ..models.layers import linear
 from ..models.subsampler import CHANNELS, EMB_CNN, subsampled_length
 from . import comm
+
+
+SP_ENCODERS = ("transformer", "conformer")
+
+
+def check_encoder(encoder_type: str) -> None:
+    """A ``ValueError`` for an encoder the sequence-parallel encode does
+    not run, before any rank starts."""
+    if encoder_type not in SP_ENCODERS:
+        raise ValueError(
+            f"the sequence-parallel encode (--mesh-model) runs encoder_type "
+            f"{' or '.join(SP_ENCODERS)}, not {encoder_type!r}")
 
 
 def time_layers(feat_extractor: str) -> List[Tuple[int, int, int]]:
@@ -185,6 +201,7 @@ def encode_sp(model, features: torch.Tensor, lengths: torch.Tensor,
     ``model``): ``features`` [B, T, F] whole in time on every rank of the
     axis, ``lengths`` [B] raw frame counts. ``slices`` defaults to
     ``time_slices`` of the encoder length."""
+    check_encoder(model.encoder.encoder_type)
     feat_extractor = model.conv.feat_extractor
     if slices is None:
         slices = time_slices(

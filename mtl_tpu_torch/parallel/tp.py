@@ -34,6 +34,12 @@ the parameters by name (``shard_tensors``). Checkpoints hold full tensors:
 axis, and a restore slices the full tensors again. A split dim that the
 axis size does not divide is refused before any rank starts
 (``check_config``), with JAX's word for it.
+
+The E-Branchformer (``models/ebranchformer.py``) has no layout: the rule
+table is the Transformer's and the Conformer's, and its cgMLP, merge conv
+and relative-position attention would need splits of their own.
+``check_config`` and ``shard_module`` refuse it by name
+(``check_encoder``).
 """
 
 from __future__ import annotations
@@ -126,10 +132,23 @@ def check_divisible(model: nn.Module, size: int) -> Dict[str, Split]:
     return layout
 
 
+NO_LAYOUT = ("e_branchformer",)
+
+
+def check_encoder(encoder_type: str, size: int) -> None:
+    """A ``ValueError`` for an encoder that has no tensor-parallel
+    layout."""
+    if encoder_type in NO_LAYOUT:
+        raise ValueError(f"--mesh-model {size}: tensor parallel has no "
+                         f"layout for encoder_type {encoder_type!r}")
+
+
 def check_config(cfg, size: int) -> None:
-    """The refusal of ``check_divisible`` for the model of ``cfg``, built
-    on the meta device (no memory, no rank)."""
+    """The refusals of ``check_encoder`` and ``check_divisible`` for the
+    model of ``cfg``, built on the meta device (no memory, no rank)."""
     from ..models.transformer import build_model
+
+    check_encoder(cfg.model.encoder_type, size)
 
     with torch.device("meta"):
         model = build_model(cfg, 1)
@@ -179,6 +198,7 @@ def shard_module(model: nn.Module, axis) -> Dict[str, Split]:
     ``axis`` (in place, a new ``nn.Parameter`` each) and turns on the
     layers' split forwards; returns the layout, also kept as
     ``model.tp_layout`` beside ``model.tp_axis``."""
+    check_encoder(model.encoder.encoder_type, axis.size)
     layout = check_divisible(model, axis.size)
     with torch.no_grad():
         for name, split in layout.items():

@@ -43,7 +43,7 @@ largest), and the sequence-parallel encode over 2 ranks on the card
 against the unsharded encode; the meta step replayed as CUDA graphs
 (``train/graphs.py``) against the eager step over seven steps of three
 shape keys (the shared query and ``per_task_query`` on the VGG kernels,
-emb_cnn's running statistics), bit-equal or within one bf16 ulp of the
+emb_cnn's running statistics, an E-Branchformer encoder), bit-equal or within one bf16 ulp of the
 largest element, its launch counts (each replay counted once, its kernels
 at the capture) the eager step's.
 Tolerances:
@@ -998,6 +998,8 @@ def _small_cfg(encoder="transformer", dtype="float32", dropout=0.0):
     m.dim_model = m.dim_emb = m.dim_inner = 64
     m.dim_key = m.dim_value = 16
     m.r, m.dtype, m.dropout, m.encoder_type = 8, dtype, dropout, encoder
+    m.linear_units, m.cgmlp_linear_units = 128, 192
+    m.cgmlp_conv_kernel, m.merge_conv_kernel = 31, 7
     cfg.train.lr, cfg.train.clip, cfg.train.max_norm = 0.05, True, 0.5
     return cfg.finalize()
 
@@ -1266,8 +1268,22 @@ def test_graphed_meta_step_on_the_card_matches_the_eager_step(
     deterministic algorithms in both runs: the VGG backward's f32 weight
     gradients otherwise differ from one eager run to the next, and Adam
     turns a gradient near zero that changes sign into a step of 2 lr."""
+    _graphed_against_eager(dev, monkeypatch, per_task_query, feat_extractor)
+
+
+def test_graphed_e_branchformer_meta_step_matches_the_eager_step(
+        dev, monkeypatch):
+    """The same with a 2-block E-Branchformer encoder (relative-position
+    attention, cgMLP, merge; d 64, cgMLP 192, kernels 31 and 7): its
+    relative table is computed on the card inside the capture."""
+    _graphed_against_eager(dev, monkeypatch, False, "vgg_cnn",
+                           "e_branchformer")
+
+
+def _graphed_against_eager(dev, monkeypatch, per_task_query, feat_extractor,
+                           encoder="transformer"):
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = _small_cfg(dtype="bfloat16", dropout=0.1)
+    cfg = _small_cfg(encoder, dtype="bfloat16", dropout=0.1)
     cfg.model.feat_extractor = feat_extractor
     cfg.train.device_cer = True
     cfg.finalize()
@@ -1309,5 +1325,5 @@ def test_graphed_meta_step_on_the_card_matches_the_eager_step(
         exact &= torch.equal(w, g)
     assert torch.equal(g0.get_state(), g1.get_state())
     assert c0 == c1, (c0, c1)
-    print(f"graphed against eager, {per_task_query=} {feat_extractor}: "
-          f"bit-equal {exact}")
+    print(f"graphed against eager, {per_task_query=} {feat_extractor} "
+          f"{encoder}: bit-equal {exact}")

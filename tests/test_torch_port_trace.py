@@ -9,7 +9,9 @@ per-task span K times and ``meta.step``, ``meta.query_features`` and
 ``meta.outer`` once, and its outputs and updated weights are bitwise those
 of the step with tracing off. The graph-replayed meta step opens
 ``meta.graph_capture`` once and ``meta.graph_replay`` a replay, and nothing
-with tracing off. ``greedy_loop`` opens a ``greedy.step`` and a
+with tracing off. A forward of an E-Branchformer opens each
+``model.ebranch.*`` span once a block, inside ``model.encoder``.
+``greedy_loop`` opens a ``greedy.step`` and a
 ``greedy.done_sync`` a step it ran, an early EOS stop too; the prefetchers
 open ``data.wait`` in the caller, and a fetch's own spans stay on its
 worker's stack. ``cli/breakdown.py`` puts each kernel's device ms down to
@@ -278,6 +280,36 @@ def test_graph_spans_are_no_ops_off_and_counted_enabled():
             "meta.query_features": 2, "meta.outer": 2,
             **{name: 2 * K for name in PER_TASK}})
     assert state.step == 6
+
+
+EBRANCH = ("model.ebranch.attn", "model.ebranch.cgmlp",
+           "model.ebranch.merge")
+
+
+def test_e_branchformer_forward_opens_each_branch_span_once_a_block():
+    """One teacher-forced forward of a 3-block E-Branchformer opens
+    ``model.ebranch.attn``, ``.cgmlp`` and ``.merge`` 3 times each, inside
+    ``model.encoder`` (opened once): their time is part of its."""
+    cfg = _cfg(False)
+    m = cfg.model
+    m.encoder_type, m.num_enc_layers = "e_branchformer", 3
+    m.linear_units, m.cgmlp_linear_units, m.merge_conv_kernel = 32, 48, 7
+    cfg.finalize()
+    model = build_model(cfg, VOCAB)
+    init_weights(model, torch.Generator().manual_seed(0))
+    batch = {k: v[0] for k, v in _batches(3, 1).items()}
+    seq_in = torch.cat([torch.ones(2, 1, dtype=torch.long),
+                        batch["targets"].long()], 1)
+    trace.enable()
+    try:
+        model(batch["features"], batch["input_lengths"], seq_in)
+    finally:
+        trace.disable()
+    tot = trace.totals()
+    assert {k: tot[k].count for k in EBRANCH} == dict.fromkeys(EBRANCH, 3)
+    assert tot["model.encoder"].count == 1
+    assert sum(tot[k].ns for k in EBRANCH) <= (
+        tot["model.encoder"].ns - tot["model.encoder"].self_ns)
 
 
 class _Decoder:
